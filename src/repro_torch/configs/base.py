@@ -1,0 +1,232 @@
+"""Architecture / shape configuration system.
+
+A copy of ``repro.configs.base``: the PyTorch package keeps its own copy
+so that it never imports the JAX package.  The schema is the same, field
+for field, so a config means the same model in both packages; the
+PyTorch models raise ``NotImplementedError`` on the features they do not
+run yet (see ``repro_torch.models.transformer.check_supported``).
+
+Every assigned architecture is expressed as one frozen ``ArchConfig``.  A
+single unified schema covers dense / GQA / MQA attention, MoE (with shared
+experts), DeepSeek-style MLA, Mamba2 (SSD) blocks, hybrid interleave
+patterns (Jamba), encoder-decoder (Seamless) and modality-frontend stubs
+(VLM / audio).
+
+``layer_pattern`` is the repeating block of per-layer ``LayerSpec``s; the
+full stack is ``n_layers // len(layer_pattern)`` repetitions, whose
+parameters are stacked along a leading ``n_blocks`` axis.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Sub-configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0
+    router_aux_coef: float = 0.01
+    # capacity factor for the dispatch formulation (tokens per expert slot)
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 multi-head latent attention."""
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0          # 0 => no LoRA on Q (V2-Lite)
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD, state-space duality) block."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk_size: int = 256
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack for enc-dec models (Seamless backbone)."""
+
+    n_layers: int = 12
+    d_model: int = 1024
+    n_heads: int = 16
+    n_kv_heads: int = 16
+    d_ff: int = 4096
+    head_dim: int = 64
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One layer of the repeating block."""
+
+    mixer: str = "attn"     # attn | swa | mamba
+    mlp: str = "dense"      # dense | moe | none
+
+
+# ---------------------------------------------------------------------------
+# Main config
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    source: str = ""            # citation for the assignment
+
+    # layer structure
+    layer_pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
+    # dense-MLP hidden size when it differs from d_ff (DeepSeek first layer)
+    dense_d_ff: int = 0
+
+    # activation / norm
+    mlp_activation: str = "swiglu"   # swiglu | geglu
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+
+    # attention knobs
+    rope_theta: float = 10000.0
+    attn_logit_softcap: float = 0.0      # 0 => disabled (gemma2: 50)
+    final_logit_softcap: float = 0.0     # 0 => disabled (gemma2: 30)
+    sliding_window: int = 0              # 0 => full attention for 'swa' none
+    qk_norm: bool = False
+    query_scale: float = 0.0             # 0 => 1/sqrt(head_dim)
+    scale_embeddings: bool = False       # gemma: embeds *= sqrt(d_model)
+    post_norms: bool = False             # gemma2 sandwich norms
+
+    # optional sub-modules
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    encoder: Optional[EncoderConfig] = None
+
+    # modality frontend stub: none | vision | audio
+    frontend: str = "none"
+    # number of frontend embedding positions prepended to the text sequence
+    n_frontend_tokens: int = 0
+
+    # long-context serving honesty flag: True iff serve at 500k+ is
+    # sub-quadratic/bounded-state for this architecture (see DESIGN.md).
+    supports_long_context: bool = False
+
+    # ------------------------------------------------------------------
+    @property
+    def n_blocks(self) -> int:
+        assert self.n_layers % len(self.layer_pattern) == 0, (
+            f"{self.name}: n_layers={self.n_layers} not divisible by "
+            f"pattern length {len(self.layer_pattern)}"
+        )
+        return self.n_layers // len(self.layer_pattern)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder is not None
+
+    def layer_specs(self) -> Tuple[LayerSpec, ...]:
+        return self.layer_pattern * self.n_blocks
+
+    def reduced(self, **overrides) -> "ArchConfig":
+        """A smoke-test-sized variant of the same family.
+
+        Keeps the structural pattern (mixers, MoE, MLA, SSM, enc-dec,
+        frontend) while shrinking widths so one forward/train step runs on a
+        single CPU device in well under a second.
+        """
+        # very long patterns (deepseek: 27 = 1 dense + 26 moe) shrink to the
+        # first two positions, preserving the structural mix
+        pattern = (self.layer_pattern if len(self.layer_pattern) <= 8
+                   else self.layer_pattern[:2])
+        small: dict = dict(
+            layer_pattern=pattern,
+            n_layers=len(pattern) * 2,
+            d_model=min(self.d_model, 128),
+            n_heads=min(self.n_heads, 4),
+            n_kv_heads=min(self.n_kv_heads, 2),
+            head_dim=min(self.head_dim, 32),
+            d_ff=min(self.d_ff, 256) if self.d_ff else 0,
+            dense_d_ff=min(self.dense_d_ff, 256) if self.dense_d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
+            n_frontend_tokens=min(self.n_frontend_tokens, 16) if self.n_frontend_tokens else 0,
+        )
+        if self.n_kv_heads == self.n_heads:
+            small["n_kv_heads"] = small["n_heads"]
+        if self.moe is not None:
+            small["moe"] = dataclasses.replace(
+                self.moe,
+                n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                d_expert=min(self.moe.d_expert, 128),
+                n_shared=min(self.moe.n_shared, 1),
+            )
+        if self.mla is not None:
+            small["mla"] = dataclasses.replace(
+                self.mla,
+                kv_lora_rank=64,
+                qk_nope_head_dim=32,
+                qk_rope_head_dim=16,
+                v_head_dim=32,
+            )
+            small["head_dim"] = 48  # nope+rope
+        if self.ssm is not None:
+            small["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, head_dim=16, chunk_size=32
+            )
+        if self.encoder is not None:
+            small["encoder"] = dataclasses.replace(
+                self.encoder,
+                n_layers=2,
+                d_model=small["d_model"],
+                n_heads=small["n_heads"],
+                n_kv_heads=small["n_heads"],
+                d_ff=small["d_ff"],
+                head_dim=small["head_dim"],
+            )
+        small.update(overrides)
+        return dataclasses.replace(self, name=self.name + "-smoke", **small)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assignment block)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
