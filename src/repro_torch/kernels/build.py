@@ -1,7 +1,9 @@
 """Build the hand-written CUDA kernels and load them with ``ctypes``.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into an object
-file, all sources at once in parallel, and the objects are linked into
+Every ``csrc/*.cu`` (RMSNorm, flash attention and the fused
+cross-entropy, each forward and backward) is compiled by ``nvcc`` for
+``sm_90a`` into an object file, all sources at once in parallel, and the
+objects are linked into
 one shared library with a plain C interface under ``build/repro_torch/``
 at the repository root.  The library's name carries a hash of the
 sources and flags, so a changed source is rebuilt and an unchanged one is
@@ -105,12 +107,33 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                           ctypes.c_float)
     lib.rms_norm_launch.argtypes = [ptr, ptr, ptr, i64, i32, f32, i32, ptr]
     lib.rms_norm_launch.restype = i32
+    lib.rms_norm_bwd_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,       # dx, dscale, part, x, scale, dy
+        i64, i32, f32, i32, ptr]            # rows, d, eps, dtype, stream
+    lib.rms_norm_bwd_launch.restype = i32
+    lib.rms_norm_bwd_rows_per_block.argtypes = []
+    lib.rms_norm_bwd_rows_per_block.restype = i32
     lib.flash_attention_launch.argtypes = [
-        ptr, ptr, ptr, ptr,                 # o, q, k, v
+        ptr, ptr, ptr, ptr, ptr,            # o, lse, q, k, v
         i32, i32, i32, i32, i32, i32,       # B, H, KV, Sq, Sk, D
         f32, i32, i32, f32,                 # scale, causal, window, logit_cap
         i32, ptr]                           # dtype, stream
     lib.flash_attention_launch.restype = i32
+    lib.flash_attention_bwd_launch.argtypes = [
+        ptr, ptr, ptr, ptr,                 # dq, dk, dv, delta
+        ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, o, lse, dout
+        i32, i32, i32, i32, i32, i32,       # B, H, KV, Sq, Sk, D
+        f32, i32, i32, f32,                 # scale, causal, window, logit_cap
+        i32, ptr]                           # dtype, stream
+    lib.flash_attention_bwd_launch.restype = i32
+    lib.ce_loss_fwd_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,            # loss, logz, x, table, labels
+        i32, i32, i32, i32, ptr]            # T, V, d, dtype, stream
+    lib.ce_loss_fwd_launch.restype = i32
+    lib.ce_loss_bwd_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # dx, dW, x, table, labels, logz, g
+        i32, i32, i32, i32, ptr]            # T, V, d, dtype, stream
+    lib.ce_loss_bwd_launch.restype = i32
     lib.repro_torch_error_string.argtypes = [i32]
     lib.repro_torch_error_string.restype = ctypes.c_char_p
     return lib

@@ -18,6 +18,18 @@
 //     sees one read and one write;
 //   * the last block masks rows past the end instead of padding them the
 //     way the TPU kernel pads to its 256-row blocks.
+//
+// Backward (no TPU counterpart: the JAX package trains through its plain
+// path).  With r = rsqrt(mean(x^2) + eps) and g = dy * (1 + scale):
+//   dx     = r * g - x * r^3 * mean(g * x)           per row,
+//   dscale = sum over rows of dy * x * r             per column.
+// rms_norm_bwd_kernel gives a block 16 rows: its warps first reduce each
+// row's sum of squares and sum of g * x with shuffles, then its threads
+// walk the columns (coalesced) over those 16 rows, writing dx and one
+// fp32 partial of dscale per column.  column_sum adds the partials of all
+// blocks in a fixed order.  No atomics, so runs are deterministic.  Bound:
+// bytes (x and dy read, dx written; the partials are 1/8 of that at
+// d = 2048 in bf16).
 // A launch allocates nothing and returns cudaGetLastError().
 
 #include <cstdint>
@@ -84,7 +96,105 @@ int launch(void* out, const void* x, const float* scale, long long rows,
   return (int)cudaGetLastError();
 }
 
+constexpr int kBwdRows = 16;       // rows per block of the backward
+constexpr int kBwdThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+rms_norm_bwd_kernel(T* __restrict__ dx, float* __restrict__ part,
+                    const T* __restrict__ x, const float* __restrict__ scale,
+                    const T* __restrict__ dy, long long rows, int d,
+                    float eps) {
+  __shared__ float r_s[kBwdRows];
+  __shared__ float c_s[kBwdRows];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long r0 = (long long)blockIdx.x * kBwdRows;
+
+  for (int i = warp; i < kBwdRows; i += kBwdThreads / 32) {
+    const long long row = r0 + i;
+    float ss = 0.f, gx = 0.f;
+    if (row < rows) {
+      const T* xr = x + row * d;
+      const T* dr = dy + row * d;
+      for (int c = lane; c < d; c += 32) {
+        const float xv = to_float(xr[c]);
+        ss += xv * xv;
+        gx += to_float(dr[c]) * (1.f + scale[c]) * xv;
+      }
+    }
+    ss = warp_sum(ss);
+    gx = warp_sum(gx);
+    if (lane == 0) {
+      const float r = rsqrtf(ss / (float)d + eps);
+      r_s[i] = r;
+      c_s[i] = r * r * r * (gx / (float)d);
+    }
+  }
+  __syncthreads();
+
+  const long long left = rows - r0;
+  const int nr = left < kBwdRows ? (int)left : kBwdRows;
+  for (int c = tid; c < d; c += kBwdThreads) {
+    const float w = 1.f + scale[c];
+    float acc = 0.f;
+    for (int i = 0; i < nr; ++i) {
+      const long long off = (r0 + i) * d + c;
+      const float xv = to_float(x[off]), dv = to_float(dy[off]);
+      const float r = r_s[i];
+      dx[off] = from_float<T>(r * (dv * w) - xv * c_s[i]);
+      acc += dv * xv * r;
+    }
+    part[(long long)blockIdx.x * d + c] = acc;
+  }
+}
+
+__global__ void column_sum(float* __restrict__ out,
+                           const float* __restrict__ part, int nparts, int d) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  float s = 0.f;
+  for (int p = 0; p < nparts; ++p) s += part[(long long)p * d + c];
+  out[c] = s;
+}
+
+template <typename T>
+int launch_bwd(void* dx, float* dscale, float* part, const void* x,
+               const float* scale, const void* dy, long long rows, int d,
+               float eps, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((rows + kBwdRows - 1) / kBwdRows);
+  rms_norm_bwd_kernel<T><<<blocks, kBwdThreads, 0, stream>>>(
+      static_cast<T*>(dx), part, static_cast<const T*>(x), scale,
+      static_cast<const T*>(dy), rows, d, eps);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  column_sum<<<(unsigned)((d + 255) / 256), 256, 0, stream>>>(
+      dscale, part, (int)blocks, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// Rows of x per dscale partial: the caller sizes `part` as
+// ceil(rows / rms_norm_bwd_rows_per_block()) x d fp32.
+extern "C" int rms_norm_bwd_rows_per_block() { return kBwdRows; }
+
+extern "C" int rms_norm_bwd_launch(void* dx, void* dscale, void* part,
+                                   const void* x, const void* scale,
+                                   const void* dy, long long rows, int d,
+                                   float eps, int dtype, void* stream) {
+  const float* s = static_cast<const float*>(scale);
+  float* ds = static_cast<float*>(dscale);
+  float* pt = static_cast<float*>(part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows == 0) return (int)cudaMemsetAsync(ds, 0, sizeof(float) * d, st);
+  switch (dtype) {
+    case kFloat32:
+      return launch_bwd<float>(dx, ds, pt, x, s, dy, rows, d, eps, st);
+    case kBFloat16:
+      return launch_bwd<__nv_bfloat16>(dx, ds, pt, x, s, dy, rows, d, eps, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 extern "C" int rms_norm_launch(void* out, const void* x, const void* scale,
                                long long rows, int d, float eps, int dtype,

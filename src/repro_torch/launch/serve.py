@@ -41,7 +41,8 @@ def main(argv: Optional[Sequence[str]] = None) -> GenerationResult:
     cfg = get_arch(args.arch)
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = Model(cfg, dtype=DTYPES[args.dtype], device=device, generator=gen)
+    model = Model(cfg, dtype=DTYPES[args.dtype], device=device, generator=gen,
+                  trainable=False)
     if args.checkpoint:
         path = args.checkpoint
         path = path if path.endswith(".npz") else path + ".npz"

@@ -1,5 +1,6 @@
 """The PyTorch port's gemma-2b serving path against the JAX package, on
-the CPU, at the smoke size, on the same (bridged) weights.
+the CPU, at the smoke size, on the same (bridged) weights, with a serving
+model (``trainable=False``).
 
 Tolerance: fp32 throughout, so the two packages do the same arithmetic
 and differ only in the order XLA and torch's CPU kernels sum the matrix
@@ -52,7 +53,7 @@ def pair():
     cfg = jax_get_arch(ARCH)
     jm = build_model(cfg, remat=False)
     params = jm.init(jax.random.key(0))
-    tm = Model(get_arch(ARCH), device="cpu")
+    tm = Model(get_arch(ARCH), device="cpu", trainable=False)
     tm.load_state_dict(params_from_flat(_flat(params)))
     return jm, params, tm
 
@@ -109,7 +110,7 @@ def test_attn_apply_matches_jax(pair):
     p_jax = jax.tree.map(lambda a: a[0], params["blocks"][0]["mixer"])
     want = jax_attn.attn_apply(p_jax, jnp.asarray(x), cfg=cfg, causal=True,
                                window=0)
-    got = pt_attn.attn_apply(tm.blocks[0].layer(0)["mixer"],
+    got = pt_attn.attn_apply(tm.blocks[0].layers()[0]["mixer"],
                              torch.from_numpy(x), cfg=tm.cfg, causal=True,
                              window=0)
     _close(got, want)
@@ -170,14 +171,14 @@ def test_serve_engine_greedy_tokens_match_jax(pair):
         {"tokens": toks}, 8)
     assert got.tokens.shape == (2, 8)
     np.testing.assert_array_equal(got.tokens, want.tokens)
-    assert ops.LAUNCHES == {"rms_norm": 0, "flash_attention": 0}
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 
 def test_jax_checkpoint_loads_into_port(pair, tmp_path):
     jm, params, _ = pair
     path = str(tmp_path / "ckpt")
     save_checkpoint(path, params, meta={"step": 1})
-    tm = Model(get_arch(ARCH), device="cpu",
+    tm = Model(get_arch(ARCH), device="cpu", trainable=False,
                generator=torch.Generator().manual_seed(9))
     with np.load(path + ".npz") as data:
         tm.load_state_dict(params_from_flat(dict(data)))
