@@ -13,36 +13,48 @@ exit code:
    ptxas' register and shared-memory report;
 3. rms_norm: kernel vs its plain PyTorch version at gemma-2b's training
    (2048 rows), prefill (8*1024) and decode (8) shapes, d = 2048, fp32
-   and bf16; the backward kernel at the training shape;
+   and bf16, and at mamba2-2.7b's (d 2560 and 5120, bf16); the backward
+   kernel at the training shapes;
 4. flash_attention: kernel vs its plain version at gemma-2b's training
    (B 8, H 8, KV 1, S 256, D 256) and prefill (S 1024) shapes and on
    small GQA cases with a window, a softcap, a ragged S and Sq != Sk;
    the backward kernels at the training shape and on the small cases;
 5. ce_loss: the fused cross-entropy forward and backward at gemma-2b's
-   training shape (T 2040, V 256000, d 2048, bf16) and in fp32 at
-   T 77, V 1000, d 64;
-6. model parity: gemma-2b at full width and depth 2, fp32, the model on
-   the card (kernels) against a copy on the CPU (plain versions), prefill
-   and 8 teacher-forced decode steps;
-7. serving: gemma-2b at full width and depth in bf16 through
-   ``ServeEngine.generate`` (8 requests, 1024 prompt tokens, 32 new),
-   with the kernel launch counts of that run, and a profile;
-8. train parity: gemma-2b at full width and depth 2, fp32, batch 2 x 64:
-   loss, every gradient and the params after one AdamW step, the card
-   against a CPU copy;
-9. training (the main path): gemma-2b at full width and depth, bf16
-   params with fp32 AdamW state, through ``ElasticTrainer`` at the JAX
-   trainer's defaults (per-node batch 8, seq 256): rescale(1), 6 steps,
-   park, unpark, 2 steps, with the launches of every step, then one
-   profiled step;
-10. elastic: that trainer under ``BFTrainerRuntime`` with the fast MILP
-    allocator over a replayed idle-node trace;
-11. a ``kernels`` line: each kernel's launches in one training step,
-    error, times and bound at the training shapes, in bf16.
+   training shape (T 2040, V 256000, d 2048, bf16), at mamba2-2.7b's
+   (T 2040, V 50280, d 2560, bf16) and in fp32 at T 77, V 1000, d 64;
+6. ssd_scan: the Mamba-2 SSD scan kernel vs both plain versions (chunked
+   and naive), y and the final state, at mamba2-2.7b's training (B 8,
+   S 256, H 80, P 64, N 128, chunk 256; fp32 and bf16) and prefill
+   (S 1024, bf16) shapes, a ragged S (1000), the JAX tests' small shapes
+   and a case whose decay overflows fp32 above the diagonal; the backward
+   kernel vs the plain backward formulas and, in fp32 at S <= 256,
+   autograd of the naive recurrence;
+then, for gemma-2b and then mamba2-2.7b:
+7. model parity: full width and depth 2, fp32, the model on the card
+   (kernels) against a copy on the CPU (plain versions), prefill of 128
+   tokens and 8 teacher-forced decode steps;
+8. serving: full width and depth in bf16 through ``ServeEngine.generate``
+   (8 requests, 1024 prompt tokens, 32 new), with the kernel launch
+   counts of that run, and a profile;
+9. train parity: full width and depth 2, fp32, batch 2 x 64: loss, every
+   gradient and the params after one AdamW step, the card against a CPU
+   copy;
+10. training (the main paths): full width and depth, bf16 params with
+    fp32 AdamW state, through ``ElasticTrainer`` at the JAX trainer's
+    defaults (per-node batch 8, seq 256): rescale(1), 6 steps, park,
+    unpark, 2 steps, with the launches of every step, then one profiled
+    step;
+11. elastic (gemma-2b): that trainer under ``BFTrainerRuntime`` with the
+    fast MILP allocator over a replayed idle-node trace;
+12. a ``kernels`` line: each kernel's launches in one training step of
+    the newest main path that runs it (mamba2-2.7b, and gemma-2b for
+    flash attention), its launches on every path, and its error, times
+    and bound at that path's training shape, in bf16.
 
 Tolerances: kernels 2e-5 (fp32) / 2e-2 (bf16), those of the JAX
 package's kernel tests; a bf16 output is held to 2e-2 of
-max(|plain|, 1) elementwise, one bf16 ulp with margin.  Gradients: 1e-4
+max(|plain|, 1) elementwise, one bf16 ulp with margin.  The SSD scan
+1e-4 (fp32) / 0.08 (bf16), those of its JAX test.  Gradients: 1e-4
 (fp32) / 2e-2 (bf16) of the largest |gradient|.  Model and train parity
 1e-3 of the largest value of each output or leaf: fp32 with TF32 off
 (set below for matmuls and cuDNN), so the card and the CPU differ only
@@ -50,12 +62,14 @@ in the order sums are taken.  Times are CUDA-event means over repeated
 launches after a warm-up; the inputs are not flushed from L2 between
 launches, as the model's caller finds them freshly written.  Bounds use
 the H100 SXM data-sheet peaks: 3.35 TB/s of HBM, 989 TFLOP/s in bf16 on
-the tensor cores and 67 TFLOP/s in fp32 without them.
+the tensor cores and 67 TFLOP/s in fp32 without them.  No single PyTorch
+call computes the SSD scan, so its ``library_ms`` is null.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -151,14 +165,25 @@ def phase_build(build) -> None:
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
 
 
+RMS_CASES = [
+    # (rows, d, dtypes): gemma-2b's training (2048), prefill (8 x 1024) and
+    # decode (8) rows at d 2048; mamba2-2.7b's at d 2560 (the block norm)
+    # and 5120 (the gated norm), bf16
+    *((rows, 2048, (torch.float32, torch.bfloat16))
+      for rows in (2048, 8 * 1024, 8)),
+    *((rows, d, (torch.bfloat16,)) for d in (2560, 5120)
+      for rows in (2048, 8 * 1024, 8)),
+]
+
+
 def phase_rms_norm(ops, ref) -> dict:
     """Forward at the training, prefill and decode shapes; backward at the
-    training shape.  Returns the bf16 cases at the training shape."""
+    training shapes.  Returns the bf16 cases at the training shape of
+    gemma-2b (d 2048) and of mamba2-2.7b's gated norm (d 5120)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     main = {}
-    d = 2048
-    for rows in (2048, 8 * 1024, 8):
-        for dtype in (torch.float32, torch.bfloat16):
+    for rows, d, dtypes in RMS_CASES:
+        for dtype in dtypes:
             x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
             s = torch.randn(d, generator=gen, device="cuda") * 0.1
             err = out_err(ops.rms_norm(x, s), ref.rms_norm_ref(x, s))
@@ -179,12 +204,10 @@ def phase_rms_norm(ops, ref) -> dict:
             emit(case)
             if not err <= TOL[dtype]:
                 fail(f"rms_norm {rows}x{d} {dtype}: err {err}")
-            if rows == 2048 and dtype == torch.bfloat16:
-                main["rms_norm"] = case
             if rows == 2048:
                 bwd = _rms_norm_bwd_case(ops, ref, x, s, gen)
-                if dtype == torch.bfloat16:
-                    main["rms_norm_bwd"] = bwd
+                if dtype == torch.bfloat16 and d in (2048, 5120):
+                    main[d] = {"rms_norm": case, "rms_norm_bwd": bwd}
     return main
 
 
@@ -340,12 +363,14 @@ def _flash_bwd_case(ops, ref, q, k, v, o, kw, pairs, gen, sdpa) -> dict:
 CE_CASES = [
     # (T, V, d, dtype)
     (2040, 256000, 2048, torch.bfloat16),   # gemma-2b training: 8 x 255
+    (2040, 50280, 2560, torch.bfloat16),    # mamba2-2.7b training
     (77, 1000, 64, torch.float32),
 ]
 
 
 def phase_ce_loss(ops, ref) -> dict:
-    """Forward and backward; returns the training-shape cases."""
+    """Forward and backward; returns the training-shape cases, keyed by
+    the vocabulary size."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     main = {}
     for t, v, d, dtype in CE_CASES:
@@ -406,15 +431,175 @@ def phase_ce_loss(ops, ref) -> dict:
         if not err <= GRAD_TOL[dtype]:
             fail(f"ce_loss backward {t}x{v}x{d} {dtype}: rel err {err}")
         if v > 10_000:
-            main["ce_loss"], main["ce_loss_bwd"] = fwd, bwd
+            main[v] = {"ce_loss": fwd, "ce_loss_bwd": bwd}
         del x, w, dx, dw
         torch.cuda.empty_cache()
     return main
 
 
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.08}
+SSD_CASES = [
+    # (B, S, H, P, N), chunk, dtypes, backward, label
+    ((8, 256, 80, 64, 128), 256, (torch.float32, torch.bfloat16), True,
+     "train"),                                  # mamba2-2.7b training
+    ((8, 1024, 80, 64, 128), 256, (torch.bfloat16,), False,
+     "prefill"),                                # mamba2-2.7b prefill
+    ((2, 1000, 16, 64, 128), 256, (torch.float32,), True, "ragged"),
+    ((1, 64, 2, 16, 8), 32, (torch.float32,), True, "small"),
+    ((2, 128, 3, 32, 16), 64, (torch.float32,), True, "small"),
+    ((1, 256, 8, 64, 128), 256, (torch.float32,), True, "overflow"),
+]
+
+
+def _ssd_inputs(shape, dtype, gen, overflow):
+    """x, dt, a, B, C on the card.  dt in [0.01, 0.51] and a = -exp(0.3 z),
+    the inputs of tests/test_kernels.py; the overflow case takes dt in
+    [0.6, 1.1] and a = -1, mamba2-2.7b at its init, where cum falls by
+    ~220 across a chunk of 256."""
+    b, s, h, p, n = shape
+
+    def rnd(*shp, scale):
+        return (torch.randn(*shp, generator=gen, device="cuda") * scale)
+
+    lo, hi = (0.6, 1.1) if overflow else (0.01, 0.51)
+    dt = torch.rand(b, s, h, generator=gen, device="cuda") * (hi - lo) + lo
+    a = (torch.full((h,), -1.0, device="cuda") if overflow
+         else -torch.exp(rnd(h, scale=0.3)))
+    return (rnd(b, s, h, p, scale=0.5).to(dtype), dt, a,
+            rnd(b, s, h, n, scale=0.4).to(dtype),
+            rnd(b, s, h, n, scale=0.4).to(dtype))
+
+
+def _ssd_work(shape, chunk, esz, bwd, dfinal):
+    """(bytes, operations) the scan needs: each input read once and each
+    output written once; the products over the causal pairs s <= l of
+    every chunk, and the P x N state products only where the state they
+    touch is not zero (not before the first chunk; no dstate at the last
+    chunk without a final-state cotangent)."""
+    b, s, h, p, n = shape
+    nc = -(-s // chunk)
+    lens = [min(chunk, s - c * chunk) for c in range(nc)]
+    pairs = sum(ln * (ln + 1) // 2 for ln in lens)
+    lpn = 2 * p * n
+    bh = b * h
+    rows = b * s * h
+    if not bwd:
+        ops_ = bh * (pairs * 2 * (n + p) + sum(lens) * lpn
+                     + sum(lens[1:]) * lpn)
+        nbytes = rows * (2 * p + 2 * n) * esz + rows * 4 + bh * p * n * 4
+        return nbytes, ops_
+    # G and dW once per pair, then dx, dB and dC
+    ops_ = bh * pairs * (6 * n + 4 * p)
+    ops_ += bh * 2 * lpn * (sum(lens[:-1]) + (lens[-1] if dfinal else 0))
+    ops_ += bh * 2 * lpn * sum(lens[1:])
+    nbytes = (rows * (3 * p + 4 * n) * esz + 2 * rows * 4     # x dy dx, B C dB dC
+              + (bh * p * n * 4 if dfinal else 0)
+              + bh * (nc - 1) * p * n * 4)
+    return nbytes, ops_
+
+
+def phase_ssd_scan(ops, ref) -> dict:
+    """The SSD scan kernel against both plain versions (the chunked one
+    and the naive recurrence), y and the final state; the backward kernel
+    against the plain backward formulas and, in fp32 at S <= 256, autograd
+    of the naive recurrence (which cannot overflow).  Returns the bf16
+    cases at mamba2-2.7b's training shape."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    main = {}
+    for shape, chunk, dtypes, with_bwd, label in SSD_CASES:
+        for dtype in dtypes:
+            args = _ssd_inputs(shape, dtype, gen, label == "overflow")
+            tol = SSD_TOL[dtype]
+            y, final = ops.ssd_scan(*args, chunk=chunk)
+            errs = {}
+            for name, (wy, wf) in (
+                    ("chunked", ref.ssd_chunked(*args, chunk=chunk)),
+                    ("naive", ref.ssd_scan_ref(*args))):
+                errs[name] = max(max_err(y, wy), max_err(final, wf))
+            err = max(errs.values())
+            finite = bool(torch.isfinite(y).all() and torch.isfinite(final).all())
+            esz = args[0].element_size()
+            case = {"phase": "ssd_scan", "case": label, "shape": list(shape),
+                    "chunk": chunk, "dtype": dt_name(dtype),
+                    "max_abs_err": err, "err_vs": errs, "tol": tol,
+                    "finite": finite, "library_ms": None}
+            iters = 5 if shape[1] > 256 else 20
+            case["ms"] = time_ms(lambda: ops.ssd_scan(*args, chunk=chunk),
+                                 iters, 1)
+            case["plain_ms"] = time_ms(
+                lambda: ref.ssd_chunked(*args, chunk=chunk), iters, 1)
+            case["bound_ms"], case["bound_by"] = bound(
+                *_ssd_work(shape, chunk, esz, False, False), PEAK_FLOPS[dtype])
+            emit(case)
+            if not (err < tol and finite):
+                fail(f"ssd_scan {label} {shape} {dtype}: err {errs}")
+            if with_bwd:
+                bwd = _ssd_bwd_case(ops, ref, args, chunk, label, gen)
+                if label == "train" and dtype == torch.bfloat16:
+                    main = {"ssd_scan": case, "ssd_scan_bwd": bwd}
+            del args, y, final
+            torch.cuda.empty_cache()
+    return main
+
+
+def _ssd_bwd_case(ops, ref, args, chunk, label, gen) -> dict:
+    x = args[0]
+    dtype, (b, s, h, p) = x.dtype, x.shape
+    n = args[3].shape[-1]
+    dy = torch.randn(b, s, h, p, generator=gen, device="cuda").to(dtype)
+    # the training path has no final-state cotangent; the others do
+    dfinal = (None if label == "train"
+              else torch.randn(b, h, p, n, generator=gen, device="cuda"))
+    _, _, states = ops._ssd_fwd(*args, chunk, True)
+    got = ops._ssd_bwd(*args, dy, dfinal, states, chunk)
+    want = ref.ssd_scan_bwd_ref(*args, dy, dfinal, chunk=chunk)
+    err = max(rel_err(g, w) for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    case = {"phase": "ssd_scan_bwd", "case": label, "shape": [b, s, h, p, n],
+            "chunk": chunk, "dtype": dt_name(dtype),
+            "final_state_cotangent": dfinal is not None,
+            "max_abs_err": max(max_err(g, w) for g, w in zip(got, want)),
+            "rel_err": err, "tol": GRAD_TOL[dtype], "finite": finite,
+            "library_ms": None}
+    del want
+    if dtype == torch.float32 and s <= 256:   # autograd of the naive scan
+        leaves = [t.clone().requires_grad_() for t in args]
+        y, final = ref.ssd_scan_ref(*leaves)
+        cot = [dy] + ([dfinal] if dfinal is not None else [])
+        ga = torch.autograd.grad([y, final][:len(cot)], leaves, cot,
+                                 allow_unused=True)
+        ga = [torch.zeros_like(t) if g is None else g
+              for g, t in zip(ga, leaves)]
+        case["rel_err_autograd"] = max(rel_err(g, w) for g, w in zip(got, ga))
+        err = max(err, case["rel_err_autograd"])
+        del leaves, ga, y, final
+    iters = 5 if s > 256 else 10
+    case["ms"] = time_ms(
+        lambda: ops._ssd_bwd(*args, dy, dfinal, states, chunk), iters, 1)
+    case["plain_ms"] = time_ms(lambda: ref.ssd_scan_bwd_ref(
+        *args, dy, dfinal, chunk=chunk), iters, 1)
+    case["bound_ms"], case["bound_by"] = bound(
+        *_ssd_work((b, s, h, p, n), chunk, x.element_size(), True,
+                   dfinal is not None), PEAK_FLOPS[dtype])
+    emit(case)
+    if not (err <= GRAD_TOL[dtype] and finite):
+        fail(f"ssd_scan backward {label} {case['shape']} {dtype}: "
+             f"rel err {err}")
+    return case
+
+
+def _to32(cache):
+    """Every tensor of a (nested) cache in fp32, as the engine serves."""
+    if isinstance(cache, torch.Tensor):
+        return cache.float()
+    if isinstance(cache, dict):
+        return {k: _to32(v) for k, v in cache.items()}
+    return tuple(_to32(v) for v in cache)
+
+
 @torch.inference_mode()
-def phase_model_parity(Model, get_arch) -> None:
-    cfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=2)
+def phase_model_parity(Model, get_arch, arch: str = "gemma-2b") -> None:
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2)
     gen = torch.Generator(device="cuda").manual_seed(3)
     gpu = Model(cfg, dtype=torch.float32, device="cuda", generator=gen,
                 trainable=False)
@@ -432,9 +617,7 @@ def phase_model_parity(Model, get_arch) -> None:
     lg, cg = gpu.prefill({"tokens": toks[:, :prompt].cuda()}, cache_len)
     lc, cc = cpu.prefill({"tokens": toks[:, :prompt]}, cache_len)
     rel(lg, lc)
-    to32 = lambda cache: tuple(  # noqa: E731
-        {"kv": {n: t.float() for n, t in c["kv"].items()}} for c in cache)
-    cg, cc = to32(cg), to32(cc)
+    cg, cc = _to32(cg), _to32(cc)
     for pos in range(prompt, prompt + 8):
         tok = toks[:, pos:pos + 1]
         lg, cg = gpu.decode_step(cg, tok.cuda(), pos)
@@ -448,8 +631,29 @@ def phase_model_parity(Model, get_arch) -> None:
         fail(f"model parity: relative error {max(errs)} > {MODEL_TOL}")
 
 
-def phase_serving(Model, ServeEngine, get_arch, ops) -> dict:
-    cfg = get_arch("gemma-2b")
+def _layer_counts(cfg) -> tuple[int, int]:
+    """(attention layers, mamba layers)."""
+    specs = cfg.layer_specs()
+    return (sum(sp.mixer == "attn" for sp in specs),
+            sum(sp.mixer == "mamba" for sp in specs))
+
+
+def expected_serving_launches(cfg, n_new: int) -> dict:
+    """Two norms a layer plus the final norm in the prefill and in each
+    decode step; one flash attention or SSD scan a layer in the prefill
+    (decode attends and scans in plain PyTorch)."""
+    n_attn, n_mamba = _layer_counts(cfg)
+    want = {"rms_norm": (2 * cfg.n_layers + 1) * (1 + n_new)}
+    if n_attn:
+        want["flash_attention"] = n_attn
+    if n_mamba:
+        want["ssd_scan"] = n_mamba
+    return want
+
+
+def phase_serving(Model, ServeEngine, get_arch, ops,
+                  arch: str = "gemma-2b") -> dict:
+    cfg = get_arch(arch)
     batch, prompt, n_new = 8, 1024, 32
     gen = torch.Generator(device="cuda").manual_seed(4)
     model = Model(cfg, dtype=torch.bfloat16, device="cuda", generator=gen,
@@ -462,9 +666,7 @@ def phase_serving(Model, ServeEngine, get_arch, ops) -> dict:
     ops.reset_launches()
     res = eng.generate({"tokens": toks}, n_new)
     launches = dict(ops.LAUNCHES)
-    want = dict.fromkeys(launches, 0) | {
-        "rms_norm": (2 * cfg.n_layers + 1) * (1 + n_new),
-        "flash_attention": cfg.n_layers}
+    want = dict.fromkeys(launches, 0) | expected_serving_launches(cfg, n_new)
     in_range = bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all())
     emit({"phase": "serving", "arch": cfg.name, "n_layers": cfg.n_layers,
           "dtype": "bfloat16", "batch": batch, "prompt_len": prompt,
@@ -512,8 +714,7 @@ def _profile(fn) -> dict:
 def phase_profile(model, toks: torch.Tensor, cache_len: int) -> None:
     prefill = _profile(lambda: model.prefill({"tokens": toks}, cache_len))
     logits, cache = model.prefill({"tokens": toks}, cache_len)
-    cache = tuple({"kv": {n: t.float() for n, t in c["kv"].items()}}
-                  for c in cache)
+    cache = _to32(cache)
     pos = toks.shape[1]
 
     def decode(steps=8):
@@ -534,7 +735,7 @@ def _leaf_errs(got: dict, want: dict) -> float:
                for n, w in want.items())
 
 
-def phase_train_parity(Model, AdamW, get_arch) -> None:
+def phase_train_parity(Model, AdamW, get_arch, arch: str = "gemma-2b") -> None:
     """One training step of a full-width, depth-2 fp32 model, card vs CPU
     copy: the loss, every gradient, and the params after one AdamW step.
 
@@ -543,7 +744,7 @@ def phase_train_parity(Model, AdamW, get_arch) -> None:
     of the sums decides, on any two backends.  So the step is held to the
     tolerance from the same gradients on both sides (the CPU's, copied to
     the card), and the step from each side's own gradients is reported."""
-    cfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=2)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2)
     gen = torch.Generator(device="cuda").manual_seed(5)
     gpu = Model(cfg, dtype=torch.float32, device="cuda", generator=gen,
                 remat=False)
@@ -584,22 +785,29 @@ def phase_train_parity(Model, AdamW, get_arch) -> None:
 
 def expected_train_launches(cfg) -> dict:
     """Per step with remat off: two norms a layer plus the final norm,
-    one attention a layer, one fused loss; each forward and backward."""
+    one attention or SSD scan a layer, one fused loss; each forward and
+    backward."""
     n = cfg.n_layers
-    return {"rms_norm": 2 * n + 1, "rms_norm_bwd": 2 * n + 1,
-            "flash_attention": n, "flash_attention_bwd": n,
+    n_attn, n_mamba = _layer_counts(cfg)
+    want = {"rms_norm": 2 * n + 1, "rms_norm_bwd": 2 * n + 1,
             "ce_loss": 1, "ce_loss_bwd": 1}
+    if n_attn:
+        want |= {"flash_attention": n_attn, "flash_attention_bwd": n_attn}
+    if n_mamba:
+        want |= {"ssd_scan": n_mamba, "ssd_scan_bwd": n_mamba}
+    return want
 
 
-def phase_training(Model, ElasticTrainer, get_arch, ops):
-    """The main path: gemma-2b, full width and depth, bf16, through the
+def phase_training(Model, ElasticTrainer, get_arch, ops,
+                   arch: str = "gemma-2b"):
+    """A main path: the model at full width and depth, bf16, through the
     ElasticTrainer at the JAX trainer's defaults."""
-    cfg = get_arch("gemma-2b")
+    cfg = get_arch(arch)
     gen = torch.Generator(device="cuda").manual_seed(6)
     model = Model(cfg, dtype=torch.bfloat16, device="cuda", generator=gen,
                   remat=False)
     tr = ElasticTrainer(model, per_node_batch=8, seed=6)
-    want = expected_train_launches(cfg)
+    want = dict.fromkeys(ops.LAUNCHES, 0) | expected_train_launches(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     up_s = tr.rescale(1)
@@ -689,19 +897,34 @@ def phase_elastic(tr, ops) -> dict:
 
 
 KERNELS = [
-    # name, source, replaces
-    ("rms_norm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24"),
+    # name, source, replaces, the main path its timings and launches are
+    # taken from
+    ("rms_norm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24",
+     "mamba2-2.7b"),
     ("rms_norm_bwd", "rmsnorm.cu",
-     "backward of src/repro/kernels/rmsnorm.py:24, no TPU counterpart"),
+     "backward of src/repro/kernels/rmsnorm.py:24, no TPU counterpart",
+     "mamba2-2.7b"),
     ("flash_attention", "flash_attention.cu",
-     "src/repro/kernels/flash_attention.py:76"),
+     "src/repro/kernels/flash_attention.py:76", "gemma-2b"),
     ("flash_attention_bwd", "flash_attention.cu",
      "backward of src/repro/kernels/flash_attention.py:76, no TPU "
-     "counterpart"),
-    ("ce_loss", "ce_loss.cu", "src/repro/kernels/ce_loss.py:64"),
+     "counterpart", "gemma-2b"),
+    ("ce_loss", "ce_loss.cu", "src/repro/kernels/ce_loss.py:64",
+     "mamba2-2.7b"),
     ("ce_loss_bwd", "ce_loss.cu",
-     "backward of src/repro/kernels/ce_loss.py:64, no TPU counterpart"),
+     "backward of src/repro/kernels/ce_loss.py:64, no TPU counterpart",
+     "mamba2-2.7b"),
+    ("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:67",
+     "mamba2-2.7b"),
+    ("ssd_scan_bwd", "ssd_scan.cu",
+     "backward of src/repro/kernels/ssd_scan.py:67, no TPU counterpart",
+     "mamba2-2.7b"),
 ]
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -721,26 +944,42 @@ def main() -> None:
 
     smi = phase_device()
     phase_build(build)
-    cases = phase_rms_norm(ops, ref)
-    cases |= phase_flash(ops, ref)
-    cases |= phase_ce_loss(ops, ref)
-    phase_model_parity(Model, get_arch)
-    torch.cuda.empty_cache()
-    serving = phase_serving(Model, ServeEngine, get_arch, ops)
-    torch.cuda.empty_cache()
-    phase_train_parity(Model, AdamW, get_arch)
-    torch.cuda.empty_cache()
-    tr, per_step, _ = phase_training(Model, ElasticTrainer, get_arch, ops)
-    phase_elastic(tr, ops)
+    rms = phase_rms_norm(ops, ref)
+    flash = phase_flash(ops, ref)
+    ce = phase_ce_loss(ops, ref)
+    ssd = phase_ssd_scan(ops, ref)
+    # the kernels' cases at each main path's training shapes
+    cases = {"gemma-2b": rms[2048] | flash | ce[256000],
+             "mamba2-2.7b": rms[5120] | ce[50280] | ssd}
+    _free()
+    launches = {}
+    for arch in ("gemma-2b", "mamba2-2.7b"):
+        phase_model_parity(Model, get_arch, arch)
+        _free()
+        launches[f"serve-{arch}"] = phase_serving(Model, ServeEngine,
+                                                  get_arch, ops, arch)
+        _free()
+        phase_train_parity(Model, AdamW, get_arch, arch)
+        _free()
+        tr, per_step, _ = phase_training(Model, ElasticTrainer, get_arch,
+                                         ops, arch)
+        launches[f"train-{arch}"] = per_step
+        if arch == "gemma-2b":
+            phase_elastic(tr, ops)
+        del tr
+        _free()
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": rep,
-         "launches": per_step[name], "serving_launches": serving[name],
-         **{k: cases[name][k] for k in keys}}
-        for name, src, rep in KERNELS]})
+         "launches": launches[f"train-{path}"][name],
+         "launches_by_path": {p: c[name] for p, c in launches.items()
+                              if c[name]},
+         "timed_on": f"{path} training shape",
+         **{k: cases[path][name][k] for k in keys}}
+        for name, src, rep, path in KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

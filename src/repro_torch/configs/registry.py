@@ -8,8 +8,9 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.gemma_2b import CONFIG as _gemma_2b
+from repro_torch.configs.mamba2_2_7b import CONFIG as _mamba2_2_7b
 
-ARCHS: dict[str, ArchConfig] = {c.name: c for c in [_gemma_2b]}
+ARCHS: dict[str, ArchConfig] = {c.name: c for c in [_gemma_2b, _mamba2_2_7b]}
 
 
 def get_arch(name: str) -> ArchConfig:

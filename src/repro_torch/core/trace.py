@@ -153,17 +153,16 @@ def clip_fragments(fragments: Sequence[Fragment], t0: float,
     return out
 
 
-# Scheduler-derived traces (repro_torch.sched) are re-exported here lazily so
-# ``repro_torch.core.trace`` stays the one-stop module for obtaining a trace;
-# a top-level import would be circular (sched computes its TraceStats
-# through this module).
-_SCHED_REEXPORTS = ("SCENARIOS", "build_scenario", "all_scenarios",
-                    "run_scenario", "simulate_schedule",
-                    "synthetic_workload")
+# The JAX package re-exports its scheduler-derived traces here lazily
+# (from its ``sched`` package).  The scheduler is not copied into the port
+# yet (ROADMAP.md, Queue 1), so asking for one of those names says so.
+_SCHED_NAMES = ("SCENARIOS", "build_scenario", "all_scenarios",
+                "run_scenario", "simulate_schedule", "synthetic_workload")
 
 
 def __getattr__(name):
-    if name in _SCHED_REEXPORTS:
-        import repro_torch.sched as _sched
-        return getattr(_sched, name)
+    if name in _SCHED_NAMES:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}: the scheduler "
+            "traces (the JAX package's sched) are not ported yet")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,10 +1,9 @@
 """Build the hand-written CUDA kernels and load them with ``ctypes``.
 
-Every ``csrc/*.cu`` (RMSNorm, flash attention and the fused
-cross-entropy, each forward and backward) is compiled by ``nvcc`` for
-``sm_90a`` into an object file, all sources at once in parallel, and the
-objects are linked into
-one shared library with a plain C interface under ``build/repro_torch/``
+Every ``csrc/*.cu`` (RMSNorm, flash attention, the fused cross-entropy
+and the Mamba-2 SSD scan, each forward and backward) is compiled by
+``nvcc`` for ``sm_90a`` into an object file, all sources at once in
+parallel, and the objects are linked into one shared library with a plain C interface under ``build/repro_torch/``
 at the repository root.  The library's name carries a hash of the
 sources and flags, so a changed source is rebuilt and an unchanged one is
 loaded as it is.  ``library()`` builds at first use, once per process.
@@ -134,6 +133,19 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # dx, dW, x, table, labels, logz, g
         i32, i32, i32, i32, ptr]            # T, V, d, dtype, stream
     lib.ce_loss_bwd_launch.restype = i32
+    lib.ssd_scan_launch.argtypes = [
+        ptr, ptr, ptr,                      # y, final_state, states
+        ptr, ptr, ptr, ptr, ptr,            # x, dt, a, B, C
+        i32, i32, i32, i32, i32, i32,       # B, S, H, P, N, chunk
+        i32, ptr]                           # dtype, stream
+    lib.ssd_scan_launch.restype = i32
+    lib.ssd_scan_bwd_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,       # dx, ddt, da, da_part, dB, dC
+        ptr, ptr, ptr, ptr, ptr, ptr,       # x, dt, a, B, C, dy
+        ptr, ptr,                           # dfinal, states
+        i32, i32, i32, i32, i32, i32,       # B, S, H, P, N, chunk
+        i32, ptr]                           # dtype, stream
+    lib.ssd_scan_bwd_launch.restype = i32
     lib.repro_torch_error_string.argtypes = [i32]
     lib.repro_torch_error_string.restype = ctypes.c_char_p
     return lib

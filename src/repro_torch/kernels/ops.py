@@ -20,17 +20,19 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ce_loss_ref, flash_attention_ref, \
-    rms_norm_ref
+    rms_norm_ref, ssd_chunked
 
 LAUNCHES: dict[str, int] = {
     "rms_norm": 0, "rms_norm_bwd": 0,
     "flash_attention": 0, "flash_attention_bwd": 0,
     "ce_loss": 0, "ce_loss_bwd": 0,
+    "ssd_scan": 0, "ssd_scan_bwd": 0,
 }
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 CE_MAX_DIM = 4096       # ce_loss.cu: d <= 8 x 512 threads
+SSD_MAX_P, SSD_MAX_N, SSD_MAX_CHUNK = 64, 128, 256   # ssd_scan.cu tiles
 
 
 def reset_launches() -> None:
@@ -148,6 +150,40 @@ def _ce_bwd(x, table, labels, logz, g):
     return dx, dw
 
 
+def _ssd_fwd(x, dt, a, bmat, cmat, chunk, want_states):
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    nc = -(-s // chunk)
+    y = torch.empty_like(x)
+    final = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
+    states = (torch.empty(b, h, nc - 1, p, n, dtype=torch.float32,
+                          device=x.device)
+              if want_states and nc > 1 else None)
+    build.check(build.library().ssd_scan_launch(
+        y.data_ptr(), final.data_ptr(), _ptr(states), x.data_ptr(),
+        dt.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+        b, s, h, p, n, chunk, _DTYPES[x.dtype], _stream()), "ssd_scan")
+    LAUNCHES["ssd_scan"] += 1
+    return y, final, states
+
+
+def _ssd_bwd(x, dt, a, bmat, cmat, dy, dfinal, states, chunk):
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    dx, dbm, dcm = (torch.empty_like(t) for t in (x, bmat, cmat))
+    ddt = torch.empty_like(dt)
+    da = torch.empty_like(a)
+    part = torch.empty(b, h, dtype=torch.float32, device=x.device)
+    build.check(build.library().ssd_scan_bwd_launch(
+        dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), part.data_ptr(),
+        dbm.data_ptr(), dcm.data_ptr(), x.data_ptr(), dt.data_ptr(),
+        a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dy.data_ptr(),
+        _ptr(dfinal), _ptr(states), b, s, h, p, n, chunk, _DTYPES[x.dtype],
+        _stream()), "ssd_scan_bwd")
+    LAUNCHES["ssd_scan_bwd"] += 1
+    return dx, ddt, da, dbm, dcm
+
+
 # ---------------------------------------------------------------------------
 # Autograd: kernel forward, kernel backward
 # ---------------------------------------------------------------------------
@@ -194,6 +230,28 @@ class _CeLoss(torch.autograd.Function):
         x, table, labels, logz = ctx.saved_tensors
         dx, dw = _ce_bwd(x, table, labels, logz, g.float().contiguous())
         return dx, dw, None
+
+
+class _SsdScan(torch.autograd.Function):
+    """(y, final_state); the backward takes a cotangent for either output
+    (None: zero) and seeds the reverse carry with final_state's."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bmat, cmat, chunk):
+        y, final, states = _ssd_fwd(x, dt, a, bmat, cmat, chunk, True)
+        ctx.save_for_backward(x, dt, a, bmat, cmat, states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, a, bmat, cmat, states = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dfinal = None if dfinal is None else dfinal.float().contiguous()
+        grads = _ssd_bwd(x, dt, a, bmat, cmat, dy, dfinal, states,
+                         ctx.chunk)
+        return (*grads, None)
 
 
 # ---------------------------------------------------------------------------
@@ -290,3 +348,43 @@ def ce_loss(x: torch.Tensor, table: torch.Tensor,
     if _wants_grad(x, table):
         return _CeLoss.apply(x, table, labels)
     return _ce_fwd(x, table, labels)[0]
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             bmat: torch.Tensor, cmat: torch.Tensor, *,
+             chunk: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD chunked scan. x: (B,S,H,P); dt: (B,S,H) fp32; a: (H,)
+    fp32; bmat, cmat: (B,S,H,N) in x's type (fp32 or bf16).  Returns (y
+    (B,S,H,P) in x's type, final_state (B,H,P,N) fp32).  Any S: the kernel
+    masks the last chunk instead of asking for a multiple of ``chunk``.
+    The JAX wrapper's ``interpret`` has no counterpart."""
+    what = "ssd_scan"
+    on_cuda = _on_cuda(x, what)
+    _check(what, x.dim() == 4, f"x must be (B,S,H,P), got {tuple(x.shape)}")
+    b, s, h, p = x.shape
+    n = bmat.shape[-1] if bmat.dim() == 4 else -1
+    _check(what, bmat.shape == cmat.shape == (b, s, h, n),
+           f"bmat {tuple(bmat.shape)} / cmat {tuple(cmat.shape)} must be "
+           f"(B,S,H,N) = ({b}, {s}, {h}, N)")
+    _check(what, dt.shape == (b, s, h) and a.shape == (h,),
+           f"dt {tuple(dt.shape)} / a {tuple(a.shape)} must be ({b}, {s}, "
+           f"{h}) / ({h},)")
+    _check(what, x.dtype in _DTYPES and bmat.dtype == cmat.dtype == x.dtype,
+           f"dtypes {x.dtype}/{bmat.dtype}/{cmat.dtype} not supported")
+    _check(what, dt.dtype == a.dtype == torch.float32,
+           f"dt and a must be fp32, got {dt.dtype}/{a.dtype}")
+    _check(what, x.device == dt.device == a.device == bmat.device
+           == cmat.device, "tensors on different devices")
+    _check(what, all(t.is_contiguous() for t in (x, dt, a, bmat, cmat)),
+           "inputs must be contiguous")
+    _check(what, s > 0 and 0 < p <= SSD_MAX_P and 0 < n <= SSD_MAX_N,
+           f"S {s}, P {p}, N {n}: need S > 0, P <= {SSD_MAX_P}, "
+           f"N <= {SSD_MAX_N}")
+    _check(what, 0 < chunk <= SSD_MAX_CHUNK,
+           f"chunk {chunk} not in (0, {SSD_MAX_CHUNK}]")
+    if not on_cuda:
+        return ssd_chunked(x, dt, a, bmat, cmat, chunk=chunk)
+    if _wants_grad(x, dt, a, bmat, cmat):
+        return _SsdScan.apply(x, dt, a, bmat, cmat, chunk)
+    y, final, _ = _ssd_fwd(x, dt, a, bmat, cmat, chunk, False)
+    return y, final

@@ -7,12 +7,22 @@ against on the card.  The backwards (``*_bwd_ref``) are the explicit
 formulas the backward kernels compute, in fp32, from the forward's inputs
 and the statistics the forward kernels save (``lse``, ``logz``); they let
 the algorithm be tested on the CPU against autograd and ``jax.grad``.
+
+The SSD scan has two plain versions: ``ssd_scan_ref``, the naive
+recurrence over S (the exact oracle, which cannot overflow), and
+``ssd_chunked``, the chunked algorithm the model runs on the CPU.  Unlike
+the JAX ``ssd_chunked``, which exponentiates the whole L x L tile of
+``cum[l] - cum[s]`` and masks afterwards, it masks first: above the
+diagonal the exponent passes fp32's range at a chunk of 256, and the
+masked gradient is then ``0 * inf = NaN``.  Where JAX's gradient is
+finite the two agree.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -2.0 ** 30
 
@@ -145,3 +155,149 @@ def ce_loss_bwd_ref(x: torch.Tensor, table: torch.Tensor,
     dx = p @ table.float()
     dw = p.T @ x.float()
     return dx.to(x.dtype), dw.to(table.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD scan.  x: (B,S,H,P); dt: (B,S,H) fp32; a: (H,) fp32;
+# bmat, cmat: (B,S,H,N) (already broadcast from groups to heads).
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 bmat: torch.Tensor, cmat: torch.Tensor):
+    """Naive sequential recurrence in fp32 (``repro.kernels.ref``).
+    Returns (y in x's type, final_state (B,H,P,N) fp32)."""
+    batch, s, h, p = x.shape
+    state = x.new_zeros((batch, h, p, bmat.shape[-1]), dtype=torch.float32)
+    xf, dtf, bf, cf = x.float(), dt.float(), bmat.float(), cmat.float()
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * a.float())                  # (B,H)
+        upd = torch.einsum("bh,bhn,bhp->bhpn", dtf[:, t], bf[:, t], xf[:, t])
+        state = state * decay[:, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def _chunks(chunk: int, *tensors: torch.Tensor):
+    """Each (B,S,...) tensor in fp32, zero-padded to a multiple of
+    ``chunk`` and reshaped to (B, nc, chunk, ...)."""
+    s = tensors[0].shape[1]
+    pad = (-s) % chunk
+    out = []
+    for t in tensors:
+        t = t.float()
+        if pad:
+            t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        out.append(t.reshape(t.shape[0], -1, chunk, *t.shape[2:]))
+    return out
+
+
+def _masked_decay(cum: torch.Tensor) -> torch.Tensor:
+    """(B,nc,L,H) -> (B,nc,L,L,H): exp(cum[l] - cum[s]) for s <= l, else 0,
+    with the exponent taken only below the diagonal."""
+    chunk = cum.shape[2]
+    tri = torch.ones(chunk, chunk, dtype=torch.bool,
+                     device=cum.device).tril()[None, None, :, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    return torch.exp(diff.masked_fill(~tri, float("-inf")))
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                bmat: torch.Tensor, cmat: torch.Tensor, *, chunk: int):
+    """Chunked SSD scan (JAX ``repro.models.mamba2.ssd_chunked``, with the
+    decay masked before the exponent).  Inputs are widened to fp32 first,
+    as the Pallas and CUDA kernels do.  The JAX ``init_state`` has no
+    counterpart: no caller passes one.  Returns (y in x's type,
+    final_state (B,H,P,N) fp32)."""
+    batch, s, h, p = x.shape
+    n = bmat.shape[-1]
+    xc, dtc, bc, cc = _chunks(chunk, x, dt, bmat, cmat)
+    cum = torch.cumsum(dtc * a.float(), dim=2)                # (B,nc,L,H)
+    cb = torch.einsum("bclhn,bcshn->bclsh", cc, bc)
+    y = torch.einsum("bclsh,bcsh,bcshp->bclhp", cb * _masked_decay(cum),
+                     dtc, xc)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)         # (B,nc,L,H)
+    states = torch.einsum("bcshn,bcsh,bcshp->bchpn", bc,
+                          dtc * decay_to_end, xc)             # (B,nc,H,P,N)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                 # (B,nc,H)
+    state = x.new_zeros((batch, h, p, n), dtype=torch.float32)
+    starts = []
+    for c in range(xc.shape[1]):
+        starts.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev = torch.stack(starts, dim=1)                         # (B,nc,H,P,N)
+    y = y + torch.einsum("bclhn,bchpn,bclh->bclhp", cc, prev, torch.exp(cum))
+    return y.reshape(batch, -1, h, p)[:, :s].to(x.dtype), state
+
+
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     bmat: torch.Tensor, cmat: torch.Tensor, dy: torch.Tensor,
+                     dfinal: Optional[torch.Tensor] = None, *, chunk: int):
+    """(dx, ddt, da, dB, dC): the gradient of ``ssd_chunked``'s (y,
+    final_state) for cotangents dy and dfinal (None: zero), in fp32, by
+    the formulas the backward kernel computes.  dx, dB and dC come back in
+    the inputs' types, ddt and da in fp32.
+
+    Within a chunk, with q = dt, G = C B^T, D the masked decay, dW =
+    dy x^T and dh' the cotangent of the state at the chunk's end:
+      dx = (G D q)^T dy + q F,           F[s] = w[s] B[s] dh'^T,
+      dB = (D q dW)^T C + w q x dh',     w[s] = exp(cum[-1] - cum[s]),
+      dC = (D q dW) B + exp(cum) dy h    (h: the state at chunk start),
+      d cum[l] = sum_s T[l, s] - sum_l' T[l', l] + R[l] - q V
+                 (+ Z + sum_s q V at the last row),
+    with T = G D q dW, R[l] = exp(cum[l]) dy[l] . (C[l] h^T),
+    V[s] = x[s] . F[s] and Z = exp(cum[-1]) h . dh'; d da is the reverse
+    cumulative sum of d cum, ddt = sum_l G D dW + V + a d da, and
+    da = sum q d da.  The cotangent carried to the previous chunk is
+    exp(cum[-1]) dh' + sum_l exp(cum[l]) dy[l] C[l]^T."""
+    batch, s, h, p = x.shape
+    n = bmat.shape[-1]
+    xc, q, bc, cc, dyc = _chunks(chunk, x, dt, bmat, cmat, dy)
+    nc = xc.shape[1]
+    cum = torch.cumsum(q * a.float(), dim=2)                  # (B,nc,L,H)
+    ecum = torch.exp(cum)
+    w = torch.exp(cum[:, :, -1:, :] - cum)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                 # (B,nc,H)
+    contrib = torch.einsum("bcshn,bcsh,bcshp->bchpn", bc, q * w, xc)
+    state = x.new_zeros((batch, h, p, n), dtype=torch.float32)
+    starts = []
+    for c in range(nc):
+        starts.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + contrib[:, c]
+    hs = torch.stack(starts, dim=1)                           # (B,nc,H,P,N)
+    dh = (dfinal.float() if dfinal is not None
+          else x.new_zeros((batch, h, p, n), dtype=torch.float32))
+    ends = [None] * nc
+    for c in reversed(range(nc)):
+        ends[c] = dh
+        dh = dh * chunk_decay[:, c, :, None, None] + torch.einsum(
+            "blhp,blhn,blh->bhpn", dyc[:, c], cc[:, c], ecum[:, c])
+    dhe = torch.stack(ends, dim=1)                            # (B,nc,H,P,N)
+
+    dd = _masked_decay(cum)                                   # (B,nc,L,L,H)
+    gd = torch.einsum("bclhn,bcshn->bclsh", cc, bc) * dd
+    dw = torch.einsum("bclhp,bcshp->bclsh", dyc, xc)
+    m = dd * q[:, :, None, :, :] * dw                         # D q dW
+    t = gd * q[:, :, None, :, :] * dw                         # G D q dW
+    colk = (gd * dw).sum(2)                                   # (B,nc,L,H)
+    f = w[..., None] * torch.einsum("bcshn,bchpn->bcshp", bc, dhe)
+    v = (xc * f).sum(-1)                                      # (B,nc,L,H)
+    dx = torch.einsum("bclsh,bclhp->bcshp", gd * q[:, :, None, :, :], dyc) \
+        + q[..., None] * f
+    db = torch.einsum("bclsh,bclhn->bcshn", m, cc) \
+        + (w * q)[..., None] * torch.einsum("bcshp,bchpn->bcshn", xc, dhe)
+    e = ecum[..., None] * torch.einsum("bclhp,bchpn->bclhn", dyc, hs)
+    dc = torch.einsum("bclsh,bcshn->bclhn", m, bc) + e
+    dcum = t.sum(3) - q * colk + (cc * e).sum(-1) - q * v
+    z = chunk_decay * (hs * dhe).sum((-2, -1))                # (B,nc,H)
+    dcum[:, :, -1] += z + (q * v).sum(2)
+    dda = dcum.flip(2).cumsum(2).flip(2)
+    ddt = colk + v + a.float() * dda
+    da = (q * dda).sum((0, 1, 2))
+
+    def out(g, like):
+        return g.reshape(batch, nc * chunk, *g.shape[3:])[:, :s].to(like.dtype)
+
+    return (out(dx, x), out(ddt, dt), da.to(a.dtype), out(db, bmat),
+            out(dc, cmat))

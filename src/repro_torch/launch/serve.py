@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
         --batch 4 --prompt-len 32 --new-tokens 32 --dtype bfloat16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --dtype bfloat16
 
 The flags are those of ``repro.launch.serve`` plus ``--device`` (default
 ``cuda``; ``cpu`` runs the plain PyTorch path) and ``--dtype``.

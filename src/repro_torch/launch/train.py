@@ -1,6 +1,8 @@
-"""Training launcher: train a dense decoder on the card.
+"""Training launcher: train a decoder (gemma-2b, mamba2-2.7b) on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
+        --dtype bfloat16 --steps 5 [--elastic]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
         --dtype bfloat16 --steps 5 [--elastic]
 
 The flags are those of ``repro.launch.train`` plus ``--device`` (default

@@ -38,7 +38,7 @@ def resolve_device(device) -> torch.device:
 @dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "normal"        # normal | zeros
+    init: str = "normal"        # normal | zeros | ones
     scale: float = 0.02
     fp32: bool = False          # keep fp32 whatever the model dtype (norms)
 
@@ -75,12 +75,14 @@ def n_params(defs: Tree) -> int:
 
 def materialize(defs: Tree, generator: torch.Generator, dtype: torch.dtype,
                 device: torch.device) -> Tree:
-    """Normal x scale for weights, zeros for norms; norms stay fp32."""
+    """Normal x scale for weights, zeros or ones where the def says so;
+    ``fp32`` leaves stay fp32."""
 
     def make(d: ParamDef) -> torch.Tensor:
         leaf_dtype = torch.float32 if d.fp32 else dtype
-        if d.init == "zeros":
-            return torch.zeros(d.shape, dtype=leaf_dtype, device=device)
+        if d.init in ("zeros", "ones"):
+            fill = torch.zeros if d.init == "zeros" else torch.ones
+            return fill(d.shape, dtype=leaf_dtype, device=device)
         w = torch.randn(d.shape, generator=generator, dtype=torch.float32,
                         device=device)
         return w.mul_(d.scale).to(leaf_dtype)

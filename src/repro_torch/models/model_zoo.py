@@ -1,5 +1,6 @@
-"""``Model``: a dense decoder LM with a training loss, prefill and decode
-(counterpart of ``repro.models.model_zoo.Model``).
+"""``Model``: a decoder LM of attention or Mamba-2 layers with a training
+loss, prefill and decode (counterpart of
+``repro.models.model_zoo.Model``).
 
 Parameters mirror the JAX tree: ``embed`` (V, d), ``final_norm`` (d,)
 and ``blocks``, one ``ParamTree`` per position of ``cfg.layer_pattern``
@@ -25,6 +26,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import ParamDef, rms_norm, softcap
 
@@ -174,8 +176,8 @@ class Model(nn.Module):
         return rms_norm(x, self.final_norm, cfg.norm_eps)
 
     def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """Returns (logits (B,S,V) fp32, aux_loss); dense layers have no
-        auxiliary loss, so it is 0."""
+        """Returns (logits (B,S,V) fp32, aux_loss); the layers the port
+        runs have no auxiliary loss, so it is 0."""
         x = self._hidden(batch["tokens"])
         return self._logits(x), torch.zeros((), device=x.device)
 
@@ -183,7 +185,7 @@ class Model(nn.Module):
         """Mean next-token cross-entropy (JAX ``Model.loss``): the final
         norm on every position, then the fused ``ce_loss`` kernel on
         positions 0..S-2 against labels 1..S-1, plus the (zero) auxiliary
-        loss of dense layers.
+        loss.
 
         The kernel computes fp32 logits from the model's dtype; in a bf16
         model the JAX ``_logits`` rounds them to bf16 first, so bf16
@@ -231,8 +233,8 @@ class Model(nn.Module):
 
     def prefill(self, batch: dict,
                 cache_len: Optional[int] = None) -> tuple[torch.Tensor, tuple]:
-        """Returns (last-position logits (B,1,V), cache filled through S-1,
-        in bf16)."""
+        """Returns (last-position logits (B,1,V), cache filled through S-1:
+        KV and conv windows in bf16, SSM states in fp32)."""
         cfg = self.cfg
         x = self._embed(batch["tokens"])
         b, s = x.shape[:2]
@@ -240,12 +242,16 @@ class Model(nn.Module):
         cache = self.init_cache(b, cache_len)
         for i, j, spec, p in self._layers():
             h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
-            out, kv = _attn_prefill(cfg, p["mixer"], h, cache_len=cache_len)
-            cache[i]["kv"]["k"][j] = kv["k"]
-            cache[i]["kv"]["v"][j] = kv["v"]
-            x = x + out
-            h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-            x = x + L.mlp_apply(p["mlp"], h, cfg.mlp_activation)
+            if spec.mixer == "mamba":
+                out, c = _mamba_prefill(cfg, p["mixer"], h)
+                for name, t in c.items():
+                    cache[i]["mamba"][name][j] = t
+            else:
+                out, kv = _attn_prefill(cfg, p["mixer"], h,
+                                        cache_len=cache_len)
+                cache[i]["kv"]["k"][j] = kv["k"]
+                cache[i]["kv"]["v"][j] = kv["v"]
+            x = T.apply_mlp(cfg, spec, p, x + out)
         x = rms_norm(x[:, -1:].contiguous(), self.final_norm, cfg.norm_eps)
         return self._logits(x), cache
 
@@ -261,3 +267,22 @@ def _attn_prefill(cfg: ArchConfig, p: dict, h: torch.Tensor, *,
     pad = (0, 0, 0, 0, 0, cache_len - s)
     k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
     return out, {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+
+
+def _mamba_prefill(cfg: ArchConfig, p: dict,
+                   h: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """The block's output and its decode cache: the last K-1 conv inputs
+    in bf16 and the scan's final state, which the kernel returns."""
+    out, final, pre = mamba2.mamba_scan(p, h, cfg)
+    k = cfg.ssm.d_conv - 1
+    names = ("conv_x", "conv_b", "conv_c")
+    cache = {n: _last_k(t, k).to(torch.bfloat16) for n, t in zip(names, pre)}
+    cache["state"] = final
+    return out, cache
+
+
+def _last_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    s = x.shape[1]
+    if s >= k:
+        return x[:, s - k:]
+    return torch.nn.functional.pad(x, (0, 0, k - s, 0))

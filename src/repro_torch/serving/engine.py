@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import Model
-from repro_torch.models.layers import resolve_device
+from repro_torch.models.layers import resolve_device, tree_map
 
 
 @dataclass
@@ -24,9 +24,9 @@ class GenerationResult:
 class ServeEngine:
     """Runs on ``device`` (default the card), which must be the model's.
 
-    The prefill writes its KV cache in bf16 and the engine converts it to
-    ``cache_dtype`` (fp32 by default) for decoding, as the JAX engine
-    does.  Times end in ``torch.cuda.synchronize()`` on the card.
+    The prefill writes its KV cache and conv windows in bf16, and the
+    engine converts every bf16 leaf of the cache to ``cache_dtype`` (fp32
+    by default) for decoding, as the JAX engine does.  Times end in ``torch.cuda.synchronize()`` on the card.
     """
 
     def __init__(self, model: Model, *, max_len: int = 512,
@@ -65,9 +65,9 @@ class ServeEngine:
         t0 = time.perf_counter()
         logits, cache = self.model.prefill({"tokens": tokens},
                                            cache_len=self.max_len)
-        cache = tuple(
-            {"kv": {n: t.to(self.cache_dtype) if t.dtype == torch.bfloat16
-                    else t for n, t in c["kv"].items()}} for c in cache)
+        cache = tree_map(
+            lambda t: t.to(self.cache_dtype) if t.dtype == torch.bfloat16
+            else t, cache, is_leaf=lambda t: isinstance(t, torch.Tensor))
         self._sync()
         t_prefill = time.perf_counter() - t0
 

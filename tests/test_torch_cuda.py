@@ -6,8 +6,8 @@ copy.  Marked ``cuda``; run on a machine with a card:
 
 Without a card every test skips (the check is in the ``card`` fixture,
 never at import).  Tolerances: 2e-5 fp32, 2e-2 bf16 for the kernels, as
-in ``tests/test_kernels.py``; gradients 1e-4 (fp32) / 2e-2 (bf16) of the
-largest |gradient|; 1e-4 of the largest logit, loss or parameter for the
+in ``tests/test_kernels.py`` (the SSD scan: 1e-4 fp32, 0.08 bf16, as
+there); gradients 1e-4 (fp32) / 2e-2 (bf16) of the largest |gradient|; 1e-4 of the largest logit, loss or parameter for the
 fp32 smoke model (TF32 off), whose card and CPU runs differ only in
 summation order.
 """
@@ -27,6 +27,9 @@ from repro_torch.kernels.ref import (
     flash_attention_ref,
     rms_norm_bwd_ref,
     rms_norm_ref,
+    ssd_chunked,
+    ssd_scan_bwd_ref,
+    ssd_scan_ref,
 )
 from repro_torch.models import Model
 from repro_torch.serving import ServeEngine
@@ -263,11 +266,10 @@ def test_smoke_model_train_step_on_card_matches_cpu(card):
     ops.reset_launches()
     got = [trainers[0].train_step() for _ in range(2)]
     n = cfg.n_layers
-    assert ops.LAUNCHES == {"rms_norm": 2 * (2 * n + 1),
-                            "rms_norm_bwd": 2 * (2 * n + 1),
-                            "flash_attention": 2 * n,
-                            "flash_attention_bwd": 2 * n,
-                            "ce_loss": 2, "ce_loss_bwd": 2}
+    assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0) | {
+        "rms_norm": 2 * (2 * n + 1), "rms_norm_bwd": 2 * (2 * n + 1),
+        "flash_attention": 2 * n, "flash_attention_bwd": 2 * n,
+        "ce_loss": 2, "ce_loss_bwd": 2}
     want = [trainers[1].train_step() for _ in range(2)]
     for g, w in zip(got, want):
         assert abs(g.loss - w.loss) <= 1e-4 * abs(w.loss)
@@ -275,3 +277,156 @@ def test_smoke_model_train_step_on_card_matches_cpu(card):
         q = trainers[0].params[name].detach().cpu()
         scale = max(float(p.detach().abs().max()), 1e-30)
         assert float((q - p.detach()).abs().max()) <= 1e-4 * scale, name
+
+
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.08}
+SSD_CASES = [
+    # (B, S, H, P, N), chunk
+    ((1, 64, 2, 16, 8), 32),
+    ((2, 128, 3, 32, 16), 64),
+    ((2, 100, 3, 16, 16), 32),        # ragged S
+    ((1, 1000, 2, 64, 128), 256),     # ragged S, mamba2-2.7b head
+    ((2, 256, 4, 64, 128), 256),      # mamba2-2.7b training chunk
+]
+
+
+def _ssd_inputs(shape, dtype, seed, dt_range=(0.01, 0.51), a=None):
+    b, s, h, p, n = shape
+    rng = np.random.RandomState(seed)
+    lo, hi = dt_range
+    a = -np.exp(rng.randn(h) * 0.3) if a is None else np.full(h, a)
+    host = [rng.randn(b, s, h, p) * 0.5, rng.rand(b, s, h) * (hi - lo) + lo,
+            a, rng.randn(b, s, h, n) * 0.4, rng.randn(b, s, h, n) * 0.4]
+    return [torch.from_numpy(v).float().to(dt).cuda() for v, dt in zip(
+        host, (dtype, torch.float32, torch.float32, dtype, dtype))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,chunk", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(card, dtype, shape, chunk):
+    x, dt, a, bm, cm = _ssd_inputs(shape, dtype, 1)
+    before = ops.LAUNCHES["ssd_scan"]
+    y, final = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    assert final.dtype == torch.float32 and final.shape == (
+        shape[0], shape[2], shape[3], shape[4])
+    for want_y, want_f in (ssd_chunked(x, dt, a, bm, cm, chunk=chunk),
+                           ssd_scan_ref(x, dt, a, bm, cm)):
+        assert float((y.float() - want_y.float()).abs().max()) < SSD_TOL[dtype]
+        assert float((final - want_f).abs().max()) < SSD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,chunk", SSD_CASES)
+def test_ssd_scan_bwd_kernel_matches_plain(card, dtype, shape, chunk):
+    leaves = [t.requires_grad_() for t in _ssd_inputs(shape, dtype, 2)]
+    gen = torch.Generator().manual_seed(3)
+    b, s, h, p, n = shape
+    dy = _randn(gen, b, s, h, p, dtype=dtype)
+    dfinal = _randn(gen, b, h, p, n)
+    before = dict(ops.LAUNCHES)
+    y, final = ops.ssd_scan(*leaves, chunk=chunk)
+    torch.autograd.backward([y, final], [dy, dfinal])
+    assert ops.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
+    assert ops.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+    plain = [t.detach() for t in leaves]
+    want = ssd_scan_bwd_ref(*plain, dy, dfinal, chunk=chunk)
+    for leaf, w in zip(leaves, want):
+        assert _rel(leaf.grad, w) <= GRAD_TOL[dtype]
+    if dtype == torch.float32 and s <= 256:    # and autograd of the naive scan
+        again = [t.clone().requires_grad_() for t in plain]
+        torch.autograd.backward(list(ssd_scan_ref(*again)), [dy, dfinal])
+        for leaf, t in zip(leaves, again):
+            assert _rel(leaf.grad, t.grad) <= 1e-4
+
+
+def test_ssd_scan_kernel_is_finite_where_the_decay_overflows(card):
+    """dt |a| L ~ 220 > 88 at a chunk of 256: exp above the diagonal would
+    overflow; the kernel takes it only where s <= l."""
+    leaves = [t.requires_grad_() for t in _ssd_inputs(
+        (1, 256, 2, 4, 4), torch.float32, 4, dt_range=(0.6, 1.1), a=-1.0)]
+    y, final = ops.ssd_scan(*leaves, chunk=256)
+    (y.sum() + final.sum()).backward()
+    again = [t.detach().clone().requires_grad_() for t in leaves]
+    y2, f2 = ssd_scan_ref(*again)
+    (y2.sum() + f2.sum()).backward()
+    assert float((y.detach() - y2.detach()).abs().max()) < 1e-4
+    for leaf, t in zip(leaves, again):
+        assert torch.isfinite(leaf.grad).all()
+        assert _rel(leaf.grad, t.grad) <= 1e-4
+
+
+def test_ssd_scan_refuses_what_the_kernel_does_not_take(card):
+    x, dt, a, bm, cm = _ssd_inputs((1, 8, 2, 4, 4), torch.float32, 5)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(x, dt, a, bm, cm, chunk=512)
+    with pytest.raises(ValueError, match="fp32"):
+        ops.ssd_scan(x, dt.bfloat16(), a, bm, cm)
+
+
+def test_mamba2_smoke_model_on_card_matches_cpu_and_serves_through_kernels(
+        card):
+    cfg = get_arch("mamba2-2.7b-smoke")
+    gpu = Model(cfg, device=card, trainable=False,
+                generator=torch.Generator(device=card).manual_seed(0))
+    cpu = copy.deepcopy(gpu).to("cpu")
+    toks = torch.from_numpy(np.random.RandomState(0).randint(0, 512, (2, 40)))
+    want, _ = cpu({"tokens": toks})
+    got, _ = gpu({"tokens": toks.cuda()})
+    scale = max(float(want.abs().max()), 1.0)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+    ops.reset_launches()
+    res = ServeEngine(gpu, max_len=56).generate({"tokens": toks[:, :36]}, 8)
+    ref = ServeEngine(cpu, max_len=56, device="cpu").generate(
+        {"tokens": toks[:, :36]}, 8)
+    n = cfg.n_layers
+    assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0) | {
+        "rms_norm": (2 * n + 1) * 9, "ssd_scan": n}
+    np.testing.assert_array_equal(res.tokens, ref.tokens)
+
+
+def test_mamba2_smoke_train_step_on_card_matches_cpu(card):
+    """The fp32 mamba2 smoke model on the card (RMSNorm, SSD scan and
+    ce_loss kernels, forward and backward) against a CPU copy (plain
+    versions): the loss and every gradient on the same params, then two
+    ElasticTrainer steps' launches and losses.  Params after an AdamW
+    step are not compared: its first step is about lr * sign(g), so an
+    element whose gradient is at the level of the summation noise moves
+    by a sign the order of the sums decides."""
+    from repro_torch.elastic import ElasticTrainer
+    from repro_torch.optim import AdamW
+
+    cfg = get_arch("mamba2-2.7b-smoke")
+    gpu = Model(cfg, device=card, remat=False,
+                generator=torch.Generator(device=card).manual_seed(1))
+    cpu = copy.deepcopy(gpu).to("cpu")
+    toks = torch.from_numpy(np.random.RandomState(1).randint(0, 512, (2, 72)))
+    losses = []
+    for model, t in ((gpu, toks.cuda()), (cpu, toks)):   # 72 = 2 x 32 + 8
+        loss = model.loss({"tokens": t, "labels": t})
+        loss.backward()
+        losses.append(float(loss.detach()))
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+    for (name, g), (_, c) in zip(gpu.named_parameters(),
+                                 cpu.named_parameters()):
+        assert _rel(g.grad.cpu(), c.grad) <= 1e-4, name
+        g.grad, c.grad = None, None
+
+    trainers = [ElasticTrainer(m, per_node_batch=2, seed=3, device=dev,
+                               optimizer=AdamW(lr=1e-3), warmup_steps=1)
+                for m, dev in ((gpu, card), (cpu, "cpu"))]
+    for tr in trainers:
+        tr.seq_len(72)
+        tr.rescale(1)
+    ops.reset_launches()
+    got = [trainers[0].train_step() for _ in range(2)]
+    n = cfg.n_layers
+    assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0) | {
+        "rms_norm": 2 * (2 * n + 1), "rms_norm_bwd": 2 * (2 * n + 1),
+        "ssd_scan": 2 * n, "ssd_scan_bwd": 2 * n,
+        "ce_loss": 2, "ce_loss_bwd": 2}
+    want = [trainers[1].train_step() for _ in range(2)]
+    for g, w in zip(got, want):
+        assert abs(g.loss - w.loss) <= 1e-4 * abs(w.loss)

@@ -340,3 +340,19 @@ def test_train_cli_elastic_runs_on_cpu(capsys):
                      "2", "--seq", "16", "--elastic"])
     assert tr.step_count == 2
     assert "elastic run: 2 steps" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# core.trace: the scheduler traces are not ported yet
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["SCENARIOS", "build_scenario",
+                                  "simulate_schedule"])
+def test_trace_says_the_scheduler_traces_are_not_ported(name):
+    import repro_torch.core.trace as trace
+    with pytest.raises(AttributeError, match="not ported yet"):
+        getattr(trace, name)
+    assert not hasattr(trace, name)
+    with pytest.raises(AttributeError, match="no attribute 'nope'"):
+        trace.nope

@@ -296,6 +296,16 @@ def plain_launches(monkeypatch):
         ops, "_ce_bwd",
         lambda x, w, lbl, logz, g: count(
             "ce_loss_bwd", ref.ce_loss_bwd_ref(x, w, lbl, logz, g)))
+    monkeypatch.setattr(
+        ops, "_ssd_fwd",
+        lambda x, dt, a, bm, cm, chunk, want_states: count(
+            "ssd_scan", (*ref.ssd_chunked(x, dt, a, bm, cm, chunk=chunk),
+                         None)))
+    monkeypatch.setattr(
+        ops, "_ssd_bwd",
+        lambda x, dt, a, bm, cm, dy, dfinal, states, chunk: count(
+            "ssd_scan_bwd", ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, dfinal,
+                                                 chunk=chunk)))
     ops.reset_launches()
     yield
     ops.reset_launches()
@@ -334,4 +344,5 @@ def test_autograd_functions_wire_the_backward_kernels(plain_launches):
         _grad_close(a.grad, b.grad.numpy())
     assert ops.LAUNCHES == {"rms_norm": 1, "rms_norm_bwd": 1,
                             "flash_attention": 1, "flash_attention_bwd": 1,
-                            "ce_loss": 1, "ce_loss_bwd": 1}
+                            "ce_loss": 1, "ce_loss_bwd": 1,
+                            "ssd_scan": 0, "ssd_scan_bwd": 0}

