@@ -22,6 +22,11 @@ exit code:
 5. ce_loss: the fused cross-entropy forward and backward at gemma-2b's
    training shape (T 2040, V 256000, d 2048, bf16), at mamba2-2.7b's
    (T 2040, V 50280, d 2560, bf16) and in fp32 at T 77, V 1000, d 64;
+   the bf16 backward also against its chunked bf16-P formulas; a second
+   run of each must be bitwise equal; the device time of each bf16
+   kernel (forward and combine; ``ce_tc_p`` / ``ce_tc_dw`` / ``ce_tc_dx``)
+   from the profiler.  The build phase fails on a spill in a bf16
+   ``ce_loss`` kernel;
 6. ssd_scan: the Mamba-2 SSD scan kernel vs both plain versions (chunked
    and naive), y and the final state, at mamba2-2.7b's training (B 8,
    S 256, H 80, P 64, N 128, chunk 256; fp32 and bf16) and prefill
@@ -162,7 +167,16 @@ def phase_build(build) -> None:
             fn = ln.split("'")[1]
         elif "spill stores" in ln or "Used" in ln:
             ptxas[fn] = (ptxas.get(fn, "") + " " + ln.strip()).strip()
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
+    # the bf16 ce_loss kernels (ce_tc_*) hold a 64-register accumulator a
+    # thread: a spill there is a design fault, not a tuning matter
+    spills = {f: r for f, r in ptxas.items() if "ce_tc_" in f
+              and not ("0 bytes spill stores" in r and "0 bytes spill loads" in r)}
+    emit({"phase": "build", "seconds": seconds,
+          "source_seconds": build.BUILD_SECONDS, "ptxas": ptxas,
+          "ce_tc_kernels": sum("ce_tc_" in f for f in ptxas),
+          "ce_tc_spills": spills})
+    if spills or not any("ce_tc_" in f for f in ptxas):
+        fail(f"bf16 ce_loss kernels spill or are missing: {spills}")
 
 
 RMS_CASES = [
@@ -360,6 +374,21 @@ def _flash_bwd_case(ops, ref, q, k, v, o, kw, pairs, gen, sdpa) -> dict:
     return case
 
 
+def _kernel_ms(fn, names) -> dict:
+    """Device ms of one call of ``fn``, by kernel, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        for n in names:
+            if n + "(" in e.key or n + "<" in e.key:
+                ms[n] += e.self_device_time_total / 1e3
+    return {n: t if t else "not measured" for n, t in ms.items()}
+
+
 CE_CASES = [
     # (T, V, d, dtype)
     (2040, 256000, 2048, torch.bfloat16),   # gemma-2b training: 8 x 255
@@ -395,8 +424,8 @@ def phase_ce_loss(ops, ref) -> dict:
                    (x @ w.T).float(), labels, reduction="none"), iters, 1)}
         fwd["bound_ms"], fwd["bound_by"] = bound(
             (t * d + v * d) * esz + 12 * t, 2 * t * v * d, peak)
-        emit(fwd)
         if not err <= TOL[dtype]:
+            emit(fwd)
             fail(f"ce_loss {t}x{v}x{d} {dtype}: err {err}")
 
         dx, dw = ops._ce_bwd(x, w, lbl32, logz, g)
@@ -410,6 +439,30 @@ def phase_ce_loss(ops, ref) -> dict:
                "max_abs_err": max(max_err(dx, want_dx), max_err(dw, want_dw)),
                "rel_err": err, "tol": GRAD_TOL[dtype]}
         del want_dx, want_dw
+        if dtype == torch.bfloat16:   # and the chunked, bf16-P formulas
+            cdx, cdw = ref.ce_loss_bwd_chunked_ref(x, w, labels, logz, g,
+                                                   ops.ce_chunk(v))
+            bwd["rel_err_chunked"] = max(rel_err(dx, cdx), rel_err(dw, cdw))
+            err = max(err, bwd["rel_err_chunked"])
+            del cdx, cdw
+        # no atomics: a second run is bitwise equal
+        loss2, logz2 = ops._ce_fwd(x, w, lbl32)
+        dx2, dw2 = ops._ce_bwd(x, w, lbl32, logz, g)
+        fwd["bitwise_repeat"] = bool(torch.equal(loss, loss2)
+                                     and torch.equal(logz, logz2))
+        bwd["bitwise_repeat"] = bool(torch.equal(dx, dx2)
+                                     and torch.equal(dw, dw2))
+        del loss2, logz2, dx2, dw2
+        if dtype == torch.bfloat16:   # device time of each kernel
+            fwd["kernel_ms"] = _kernel_ms(
+                lambda: ops._ce_fwd(x, w, lbl32), ("ce_tc_fwd", "ce_combine"))
+            bwd["kernel_ms"] = _kernel_ms(
+                lambda: ops._ce_bwd(x, w, lbl32, logz, g),
+                ("ce_tc_p", "ce_tc_dw", "ce_tc_dx"))
+        emit(fwd)
+        if not (fwd["bitwise_repeat"] and bwd["bitwise_repeat"]):
+            emit(bwd)
+            fail(f"ce_loss {t}x{v}x{d} {dtype}: two runs differ")
         if dtype == torch.float32:    # and autograd of the plain forward
             xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
             ga = torch.autograd.grad(ref.ce_loss_ref(xa, wa, labels),

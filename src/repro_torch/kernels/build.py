@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -28,6 +29,7 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_LOG = ""            # nvcc's output (with ptxas register counts)
+BUILD_SECONDS: dict[str, float] = {}   # wall of each nvcc and the link
 
 
 class KernelBuildError(RuntimeError):
@@ -62,8 +64,12 @@ def _digest() -> str:
 
 def _run(procs: list[tuple[str, subprocess.Popen]]) -> str:
     log, failed = [], []
+    t0 = time.perf_counter()
     for name, proc in procs:
         out, _ = proc.communicate()
+        # all started together: the first source's wall is its own, a
+        # later one's is at most its own or an earlier one's
+        BUILD_SECONDS[name] = time.perf_counter() - t0
         log.append(f"--- {name} (rc {proc.returncode})\n{out}")
         if proc.returncode != 0:
             failed.append(name)
@@ -126,13 +132,18 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, ptr]                           # dtype, stream
     lib.flash_attention_bwd_launch.restype = i32
     lib.ce_loss_fwd_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,            # loss, logz, x, table, labels
-        i32, i32, i32, i32, ptr]            # T, V, d, dtype, stream
+        ptr, ptr, ptr,                      # loss, logz, partials (bf16)
+        ptr, ptr, ptr,                      # x, table, labels
+        i32, i32, i32, i32, i32, ptr]       # T, V, d, splits, dtype, stream
     lib.ce_loss_fwd_launch.restype = i32
     lib.ce_loss_bwd_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # dx, dW, x, table, labels, logz, g
-        i32, i32, i32, i32, ptr]            # T, V, d, dtype, stream
+        ptr, ptr, ptr, ptr,                 # dx, dW, P scratch, dx sum (bf16)
+        ptr, ptr, ptr, ptr, ptr,            # x, table, labels, logz, g
+        i32, i32, i32, i32, i32, ptr]       # T, V, d, chunk, dtype, stream
     lib.ce_loss_bwd_launch.restype = i32
+    lib.ce_tile_product_launch.argtypes = [
+        ptr, ptr, ptr, i32, i32, i32, i32, ptr]  # out, a, b, m, n, k, layout
+    lib.ce_tile_product_launch.restype = i32
     lib.ssd_scan_launch.argtypes = [
         ptr, ptr, ptr,                      # y, final_state, states
         ptr, ptr, ptr, ptr, ptr,            # x, dt, a, B, C

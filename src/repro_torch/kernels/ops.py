@@ -31,7 +31,11 @@ LAUNCHES: dict[str, int] = {
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-CE_MAX_DIM = 4096       # ce_loss.cu: d <= 8 x 512 threads
+CE_MAX_DIM = 4096       # ce_loss.cu, fp32 kernels: d <= 8 x 512 threads
+CE_TILE = 128           # ce_loss.cu, bf16: output tile rows
+CE_VTILE = 256          # ce_loss.cu, bf16 forward: vocab columns a tile
+CE_CHUNK = 32768        # bf16 backward: vocab rows a chunk (P <= 128 MiB
+                        # of bf16 scratch at T 2048)
 SSD_MAX_P, SSD_MAX_N, SSD_MAX_CHUNK = 64, 128, 256   # ssd_scan.cu tiles
 
 
@@ -127,27 +131,73 @@ def _flash_bwd(q, k, v, o, lse, do, causal, window, logit_cap, scale):
     return dq, dk, dv
 
 
+def ce_splits(rows: int, vocab: int, sms: int) -> int:
+    """Vocabulary splits of the bf16 forward: about four waves of blocks
+    of 128 token rows on ``sms`` SMs, at least one 256-row vocab tile a
+    split."""
+    ttiles, vtiles = -(-rows // CE_TILE), -(-vocab // CE_VTILE)
+    return max(1, min(vtiles, round(4 * sms / ttiles)))
+
+
+def ce_chunk(vocab: int) -> int:
+    """Vocabulary rows a bf16 backward chunk: ``CE_CHUNK``, or the vocab
+    rounded up to a tile when it is smaller."""
+    return min(CE_CHUNK, -(-vocab // CE_TILE) * CE_TILE)
+
+
 def _ce_fwd(x, table, labels):
     t, d = x.shape
+    v = table.shape[0]
     loss = torch.empty(t, dtype=torch.float32, device=x.device)
     logz = torch.empty(t, dtype=torch.float32, device=x.device)
+    splits, part = 0, None
+    if x.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        splits = ce_splits(t, v, sms)
+        part = torch.empty(t, splits, 3, dtype=torch.float32, device=x.device)
     build.check(build.library().ce_loss_fwd_launch(
-        loss.data_ptr(), logz.data_ptr(), x.data_ptr(), table.data_ptr(),
-        labels.data_ptr(), t, table.shape[0], d, _DTYPES[x.dtype],
-        _stream()), "ce_loss")
+        loss.data_ptr(), logz.data_ptr(), _ptr(part), x.data_ptr(),
+        table.data_ptr(), labels.data_ptr(), t, v, d, splits,
+        _DTYPES[x.dtype], _stream()), "ce_loss")
     LAUNCHES["ce_loss"] += 1
     return loss, logz
 
 
 def _ce_bwd(x, table, labels, logz, g):
     t, d = x.shape
+    v = table.shape[0]
     dx, dw = torch.empty_like(x), torch.empty_like(table)
+    chunk, pbuf, acc = 0, None, None
+    if x.dtype == torch.bfloat16:
+        chunk = ce_chunk(v)
+        pbuf = torch.empty(t, chunk, dtype=torch.bfloat16, device=x.device)
+        if v > chunk:
+            acc = torch.empty(t, d, dtype=torch.float32, device=x.device)
     build.check(build.library().ce_loss_bwd_launch(
-        dx.data_ptr(), dw.data_ptr(), x.data_ptr(), table.data_ptr(),
-        labels.data_ptr(), logz.data_ptr(), g.data_ptr(), t, table.shape[0],
-        d, _DTYPES[x.dtype], _stream()), "ce_loss_bwd")
+        dx.data_ptr(), dw.data_ptr(), _ptr(pbuf), _ptr(acc), x.data_ptr(),
+        table.data_ptr(), labels.data_ptr(), logz.data_ptr(), g.data_ptr(),
+        t, v, d, chunk, _DTYPES[x.dtype], _stream()), "ce_loss_bwd")
     LAUNCHES["ce_loss_bwd"] += 1
     return dx, dw
+
+
+def ce_tile_product(a: torch.Tensor, b: torch.Tensor,
+                    layout: str) -> torch.Tensor:
+    """The bf16 ``ce_loss`` kernels' tensor-core tile engine alone, for its
+    tests: fp32 ``a @ b.T`` (layout "NT": a (m, k), b (n, k)), ``a.T @ b``
+    ("TN": a (k, m), b (k, n)) or ``a @ b`` ("NN": a (m, k), b (k, n)).
+    Not counted in ``LAUNCHES``: no model path calls it."""
+    _check("ce_tile_product", _on_cuda(a, "ce_tile_product"),
+           "runs on the card only")
+    code = {"NT": 0, "TN": 1, "NN": 2}[layout]
+    m = a.shape[1] if layout == "TN" else a.shape[0]
+    n = b.shape[0] if layout == "NT" else b.shape[1]
+    k = a.shape[0] if layout == "TN" else a.shape[1]
+    out = torch.empty(m, n, dtype=torch.float32, device=a.device)
+    build.check(build.library().ce_tile_product_launch(
+        out.data_ptr(), a.data_ptr(), b.data_ptr(), m, n, k, code,
+        _stream()), "ce_tile_product")
+    return out
 
 
 def _ssd_fwd(x, dt, a, bmat, cmat, chunk, want_states):
@@ -320,8 +370,9 @@ def ce_loss(x: torch.Tensor, table: torch.Tensor,
     """Per-token cross-entropy of the logits ``x @ table.T``, without
     materialising them. x: (T, d); table: (V, d), both fp32 or both bf16;
     labels: (T,) integer in [0, V). Returns (T,) fp32 ``logZ - gold``
-    (mean-reduce outside). The JAX wrapper's ``block_rows``/``block_v``/
-    ``interpret`` have no counterpart: the CUDA kernels' tiles are fixed.
+    (mean-reduce outside). bf16 needs d % 8 == 0 (fp32: d <= 4096). The
+    JAX wrapper's ``block_rows``/``block_v``/``interpret`` have no
+    counterpart: the CUDA kernels' tiles are fixed.
     """
     what = "ce_loss"
     on_cuda = _on_cuda(x, what)
@@ -340,11 +391,17 @@ def ce_loss(x: torch.Tensor, table: torch.Tensor,
            "tensors on different devices")
     _check(what, x.is_contiguous() and table.is_contiguous(),
            "inputs must be contiguous")
-    _check(what, 0 < d <= CE_MAX_DIM, f"d_model {d} > {CE_MAX_DIM}")
+    if x.dtype == torch.float32:
+        _check(what, 0 < d <= CE_MAX_DIM, f"d_model {d} > {CE_MAX_DIM}")
+    else:           # TMA: 16-byte row strides and bases
+        _check(what, d > 0 and d % 8 == 0,
+               f"bf16 d_model {d} must be a positive multiple of 8")
     _check(what, t < 2 ** 31 and table.shape[0] < 2 ** 31, "too many rows")
     if not on_cuda:
         return ce_loss_ref(x, table, labels)
     labels = labels.to(torch.int32).contiguous()
+    _check(what, x.data_ptr() % 16 == 0 and table.data_ptr() % 16 == 0,
+           "x and table must start on 16-byte boundaries")
     if _wants_grad(x, table):
         return _CeLoss.apply(x, table, labels)
     return _ce_fwd(x, table, labels)[0]

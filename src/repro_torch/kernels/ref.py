@@ -157,6 +157,59 @@ def ce_loss_bwd_ref(x: torch.Tensor, table: torch.Tensor,
     return dx.to(x.dtype), dw.to(table.dtype)
 
 
+def ce_loss_partials_ref(x: torch.Tensor, table: torch.Tensor,
+                         labels: torch.Tensor, splits: int,
+                         tile: int = 256) -> torch.Tensor:
+    """The bf16 forward kernel's partials (T, splits, 3) fp32: per row and
+    split, the max logit m, the sum l of exp(logit - m) and the gold logit
+    (0 where the label lies in another split).  Split s takes the
+    ``tile``-row vocab tiles [s n // splits, (s + 1) n // splits) of n."""
+    logits = x.float() @ table.float().T
+    v = table.shape[0]
+    n = -(-v // tile)
+    lbl = labels.long()[:, None]
+    cols = torch.arange(v, device=x.device)[None, :]
+    out = []
+    for s in range(splits):
+        lo, hi = s * n // splits * tile, min((s + 1) * n // splits * tile, v)
+        part = logits[:, lo:hi]
+        m = part.max(dim=-1).values
+        l = torch.exp(part - m[:, None]).sum(dim=-1)
+        hit = (cols[:, lo:hi] == lbl)
+        gold = torch.where(hit, part, 0.0).sum(dim=-1)
+        out.append(torch.stack([m, l, gold], dim=-1))
+    return torch.stack(out, dim=1)
+
+
+def ce_loss_combine_ref(part: torch.Tensor):
+    """(loss, logZ) (T,) fp32 from the partials, splits in order."""
+    m = part[..., 0].max(dim=-1).values
+    l = (part[..., 1] * torch.exp(part[..., 0] - m[:, None])).sum(dim=-1)
+    logz = torch.log(torch.clamp(l, min=1e-30)) + m
+    return logz - part[..., 2].sum(dim=-1), logz
+
+
+def ce_loss_bwd_chunked_ref(x: torch.Tensor, table: torch.Tensor,
+                            labels: torch.Tensor, logz: torch.Tensor,
+                            g: torch.Tensor, chunk: int):
+    """What the bf16 backward kernels compute: the vocab in chunks of
+    ``chunk`` rows; per chunk P_c = g (exp(logits - logZ) - onehot)
+    rounded to bf16, dW_c = P_c^T x and dx += P_c W_c in fp32 (chunks in
+    order).  Returns (dx in x's type, dW in the table's type)."""
+    xf, wf = x.float(), table.float()
+    lbl = labels.long()[:, None]
+    dx = torch.zeros_like(xf)
+    dws = []
+    for c0 in range(0, table.shape[0], chunk):
+        wc = wf[c0:c0 + chunk]
+        cols = torch.arange(c0, c0 + wc.shape[0], device=x.device)[None, :]
+        p = torch.exp(xf @ wc.T - logz[:, None]) - (cols == lbl).float()
+        p = (p * g.float()[:, None]).to(torch.bfloat16).float()
+        dws.append(p.T @ xf)
+        dx = dx + p @ wc
+    return dx.to(x.dtype), torch.cat(dws).to(table.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Mamba-2 SSD scan.  x: (B,S,H,P); dt: (B,S,H) fp32; a: (H,) fp32;
 # bmat, cmat: (B,S,H,N) (already broadcast from groups to heads).

@@ -20,6 +20,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (
+    ce_loss_bwd_chunked_ref,
     ce_loss_bwd_ref,
     ce_loss_logz_ref,
     ce_loss_ref,
@@ -233,6 +234,74 @@ def test_ce_loss_kernels_match_plain(card, dtype, t, v, d):
         ce_loss_ref(x2, w2, labels).backward(g)
         assert _rel(x.grad, x2.grad) <= 1e-4
         assert _rel(w.grad, w2.grad) <= 1e-4
+
+
+@pytest.mark.parametrize("layout", ["NT", "TN", "NN"])
+@pytest.mark.parametrize("m,n,k", [(128, 128, 64), (200, 264, 136),
+                                   (8, 16, 520)])
+def test_ce_tile_engine_matches_an_fp32_product(card, layout, m, n, k):
+    """The bf16 ce_loss kernels' tensor-core engine alone: a bf16 x bf16
+    product is exact in fp32, so it differs from the fp32 product of the
+    same operands (TF32 off) only in summation order."""
+    gen = torch.Generator().manual_seed(11)
+    a = _randn(gen, *((k, m) if layout == "TN" else (m, k)),
+               dtype=torch.bfloat16)
+    b = _randn(gen, *((n, k) if layout == "NT" else (k, n)),
+               dtype=torch.bfloat16)
+    got = ops.ce_tile_product(a, b, layout)
+    af, bf = a.float(), b.float()
+    want = {"NT": lambda: af @ bf.T, "TN": lambda: af.T @ bf,
+            "NN": lambda: af @ bf}[layout]()
+    assert got.shape == (m, n)
+    assert _rel(got, want) <= 1e-5
+
+
+CE_BF16_EDGES = [
+    # (T, V, d, chunk): None keeps ops.CE_CHUNK
+    (64, 32768 + 1, 64, None),     # V = chunk + 1: a last chunk of one row
+    (40, 3000, 2560, None),        # mamba2-2.7b's d
+    (5, 1000, 128, None),          # T < 64: one warpgroup's rows all past T
+    (130, 1000, 136, 256),         # four chunks, the last ragged; d % 64 != 0
+]
+
+
+@pytest.mark.parametrize("t,v,d,chunk", CE_BF16_EDGES)
+def test_ce_loss_bf16_kernels_at_the_edges(card, monkeypatch, t, v, d, chunk):
+    if chunk is not None:
+        monkeypatch.setattr(ops, "CE_CHUNK", chunk)
+    gen = torch.Generator().manual_seed(12)
+    x = _randn(gen, t, d, dtype=torch.bfloat16).requires_grad_()
+    w = _randn(gen, v, d, dtype=torch.bfloat16, scale=0.05).requires_grad_()
+    labels = torch.randint(0, v, (t,), generator=gen)
+    labels[0] = v - 1                   # a gold logit in the last row
+    labels = labels.cuda()
+    g = _randn(gen, t, scale=0.1)
+    loss = ops.ce_loss(x, w, labels)
+    loss.backward(g)
+    want = ce_loss_ref(x.detach(), w.detach(), labels)
+    assert float((loss.detach() - want).abs().max()) <= TOL[torch.bfloat16]
+    _, logz = ops._ce_fwd(x.detach(), w.detach(), labels.to(torch.int32))
+    for dx, dw in (ce_loss_bwd_ref(x.detach(), w.detach(), labels, logz, g),
+                   ce_loss_bwd_chunked_ref(x.detach(), w.detach(), labels,
+                                           logz, g, ops.ce_chunk(v))):
+        assert _rel(x.grad, dx) <= GRAD_TOL[torch.bfloat16]
+        assert _rel(w.grad, dw) <= GRAD_TOL[torch.bfloat16]
+
+
+def test_ce_loss_bf16_kernels_are_deterministic(card, monkeypatch):
+    """No atomics: two calls give bitwise equal loss, dx and dW (three
+    chunks here, so the fp32 dx sum runs too)."""
+    monkeypatch.setattr(ops, "CE_CHUNK", 512)
+    gen = torch.Generator().manual_seed(13)
+    x = _randn(gen, 300, 256, dtype=torch.bfloat16)
+    w = _randn(gen, 1500, 256, dtype=torch.bfloat16, scale=0.05)
+    labels = torch.randint(0, 1500, (300,), generator=gen).cuda().int()
+    g = _randn(gen, 300, scale=0.1)
+    (l1, z1), (l2, z2) = (ops._ce_fwd(x, w, labels) for _ in range(2))
+    assert torch.equal(l1, l2) and torch.equal(z1, z2)
+    (dx1, dw1), (dx2, dw2) = (ops._ce_bwd(x, w, labels, z1, g)
+                              for _ in range(2))
+    assert torch.equal(dx1, dx2) and torch.equal(dw1, dw2)
 
 
 def test_no_grad_forward_saves_nothing_and_matches(card):

@@ -262,6 +262,118 @@ def test_ce_loss_bwd_matches_autograd_and_jax():
 
 
 # ---------------------------------------------------------------------------
+# The bf16 kernels' decomposition: vocabulary splits (forward) and chunks
+# with P rounded to bf16 (backward), in fp32 on the CPU
+# ---------------------------------------------------------------------------
+
+CE_SPLIT_CASES = [
+    # (T, V, d, splits)
+    (77, 1000, 64, 1),
+    (77, 1000, 64, 3),       # ragged last tile, uneven splits
+    (77, 1000, 64, 4),       # one 256-row tile a split
+    (9, 70, 16, 1),          # V smaller than one tile
+    (1, 513, 32, 3),         # T = 1; V = 2 tiles + 1
+]
+
+
+@pytest.mark.parametrize("t,v,d,splits", CE_SPLIT_CASES)
+def test_ce_loss_partials_and_combine_match_jax_ref(t, v, d, splits):
+    x, w, lbl = _ce_inputs(t=t, v=v, d=d)
+    tx, tw, tl = map(torch.from_numpy, (x, w, lbl))
+    part = ref.ce_loss_partials_ref(tx, tw, tl, splits)
+    assert part.shape == (t, splits, 3) and part.dtype == torch.float32
+    loss, logz = ref.ce_loss_combine_ref(part)
+    want = jax_ce_ref(jnp.asarray(x), jnp.asarray(w), jnp.asarray(lbl))
+    assert _err(loss, want) < 1e-5
+    assert float((logz - ref.ce_loss_logz_ref(tx, tw)).abs().max()) < 1e-5
+    # the gold logit lies in exactly one split
+    assert int(((part[..., 2] != 0).sum(-1) == 1).sum()) == t
+
+
+def test_ce_loss_partials_match_pallas_interpret():
+    x, w, lbl = _ce_inputs()
+    tx, tw, tl = map(torch.from_numpy, (x, w, lbl))
+    loss, _ = ref.ce_loss_combine_ref(ref.ce_loss_partials_ref(tx, tw, tl, 3))
+    want = jax_ce_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(lbl),
+                         block_rows=32, block_v=256, interpret=True)
+    assert _err(loss, want) < 1e-5
+
+
+CE_CHUNK_CASES = [
+    # (T, V, d, chunk)
+    (77, 1000, 64, 256),     # four chunks, the last ragged
+    (9, 257, 16, 256),       # V = chunk + 1
+    (9, 70, 16, 128),        # V smaller than one tile, one chunk
+    (1, 300, 32, 128),       # T = 1
+]
+
+
+@pytest.mark.parametrize("t,v,d,chunk", CE_CHUNK_CASES)
+def test_ce_loss_bwd_chunked_matches_jax_grad(t, v, d, chunk):
+    """P rounded to bf16 (about 2**-9 of each entry) moves the gradients
+    by far less than 2e-2 of the largest; unrounded, the chunked sums are
+    the plain formulas' up to fp32 summation order."""
+    x, w, lbl = _ce_inputs(t=t, v=v, d=d)
+    g = np.random.RandomState(14).randn(t).astype(np.float32)
+    tx, tw, tl, tg = map(torch.from_numpy, (x, w, lbl, g))
+    logz = ref.ce_loss_logz_ref(tx, tw)
+    dx, dw = ref.ce_loss_bwd_chunked_ref(tx, tw, tl, logz, tg, chunk)
+    assert dx.dtype == torch.float32 and dw.shape == (v, d)
+    _, vjp = jax.vjp(lambda a, b_: jax_ce_ref(a, b_, jnp.asarray(lbl)),
+                     jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(g))
+    _grad_close(dx, jdx, 2e-2)
+    _grad_close(dw, jdw, 2e-2)
+    pdx, pdw = ref.ce_loss_bwd_ref(tx, tw, tl, logz, tg)
+    _grad_close(dx, pdx.numpy(), 2e-2)
+    _grad_close(dw, pdw.numpy(), 2e-2)
+
+
+def test_ce_loss_bwd_chunked_rounds_p_like_the_kernel():
+    """One chunk or many give the same P, so the same dW bit for bit;
+    bf16 inputs give outputs in bf16."""
+    x, w, lbl = _ce_inputs(t=20, v=300, d=32)
+    tx, tw, tl = map(torch.from_numpy, (x, w, lbl))
+    g = torch.full((20,), 0.05)
+    logz = ref.ce_loss_logz_ref(tx, tw)
+    one = ref.ce_loss_bwd_chunked_ref(tx, tw, tl, logz, g, 384)
+    many = ref.ce_loss_bwd_chunked_ref(tx, tw, tl, logz, g, 128)
+    assert torch.equal(one[1], many[1])
+    assert float((one[0] - many[0]).abs().max()) <= 1e-6
+    bx, bw = tx.bfloat16(), tw.bfloat16()
+    dx, dw = ref.ce_loss_bwd_chunked_ref(bx, bw, tl, logz, g, 128)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("t,v,sms,want", [
+    (2040, 256000, 132, 33),     # gemma-2b training: 16 x 33 = 4 waves
+    (2040, 50280, 132, 33),      # mamba2-2.7b training
+    (77, 1000, 132, 4),          # at least one tile a split
+    (100000, 256000, 132, 1),    # many token tiles: no split
+])
+def test_ce_splits_fill_the_card(t, v, sms, want):
+    assert ops.ce_splits(t, v, sms) == want
+
+
+def test_ce_chunk_bounds_the_p_scratch():
+    assert ops.ce_chunk(256000) == ops.CE_CHUNK == 32768
+    assert ops.ce_chunk(1000) == 1024 and ops.ce_chunk(128) == 128
+    assert -(-256000 // ops.ce_chunk(256000)) == 8
+    assert -(-50280 // ops.ce_chunk(50280)) == 2
+    assert 2048 * ops.ce_chunk(256000) * 2 <= 128 * 2 ** 20   # bf16 P
+
+
+def test_ce_loss_refuses_a_bf16_width_tma_cannot_stride():
+    x = torch.zeros(4, 12, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.ce_loss(x, torch.zeros(5, 12, dtype=torch.bfloat16),
+                    torch.zeros(4, dtype=torch.long))
+    # fp32 keeps the CUDA-core kernels, which take any d up to 4096
+    assert ops.ce_loss(x.float(), torch.zeros(5, 12),
+                       torch.zeros(4, dtype=torch.long)).shape == (4,)
+
+
+# ---------------------------------------------------------------------------
 # The autograd Functions, with the launches swapped for the plain formulas
 # ---------------------------------------------------------------------------
 
