@@ -18,7 +18,13 @@ exit code:
 4. flash_attention: kernel vs its plain version at gemma-2b's training
    (B 8, H 8, KV 1, S 256, D 256) and prefill (S 1024) shapes and on
    small GQA cases with a window, a softcap, a ragged S and Sq != Sk;
-   the backward kernels at the training shape and on the small cases;
+   the backward kernels at the training shape and on the small cases,
+   the bf16 tensor-core backward also against its bf16-P/dS formulas
+   and bitwise against a second run; the device time of each bf16
+   tensor-core kernel (``flash_tc_fwd``; ``flash_bwd_delta``,
+   ``flash_tc_dkdv``, ``flash_tc_combine``, ``flash_tc_dq``) from the
+   profiler.  The build phase fails on a spill in a tensor-core kernel
+   (``ce_tc_*``, ``flash_tc_*``);
 5. ce_loss: the fused cross-entropy forward and backward at gemma-2b's
    training shape (T 2040, V 256000, d 2048, bf16), at mamba2-2.7b's
    (T 2040, V 50280, d 2560, bf16) and in fp32 at T 77, V 1000, d 64;
@@ -40,15 +46,17 @@ then, for gemma-2b and then mamba2-2.7b:
    tokens and 8 teacher-forced decode steps;
 8. serving: full width and depth in bf16 through ``ServeEngine.generate``
    (8 requests, 1024 prompt tokens, 32 new), with the kernel launch
-   counts of that run, and a profile;
+   counts of that run (gemma-2b: every flash launch on the tensor-core
+   route), and a profile;
 9. train parity: full width and depth 2, fp32, batch 2 x 64: loss, every
    gradient and the params after one AdamW step, the card against a CPU
    copy;
 10. training (the main paths): full width and depth, bf16 params with
     fp32 AdamW state, through ``ElasticTrainer`` at the JAX trainer's
     defaults (per-node batch 8, seq 256): rescale(1), 6 steps, park,
-    unpark, 2 steps, with the launches of every step, then one profiled
-    step;
+    unpark, 2 steps, with the launches of every step (gemma-2b: every
+    flash launch, forward and backward, on the tensor-core route), then
+    one profiled step;
 11. elastic (gemma-2b): that trainer under ``BFTrainerRuntime`` with the
     fast MILP allocator over a replayed idle-node trace;
 12. a ``kernels`` line: each kernel's launches in one training step of
@@ -167,16 +175,18 @@ def phase_build(build) -> None:
             fn = ln.split("'")[1]
         elif "spill stores" in ln or "Used" in ln:
             ptxas[fn] = (ptxas.get(fn, "") + " " + ln.strip()).strip()
-    # the bf16 ce_loss kernels (ce_tc_*) hold a 64-register accumulator a
-    # thread: a spill there is a design fault, not a tuning matter
-    spills = {f: r for f, r in ptxas.items() if "ce_tc_" in f
+    # the tensor-core kernels (ce_tc_*, flash_tc_*) hold 64 x 256 fp32
+    # accumulators in registers: a spill there is a design fault, not a
+    # tuning matter
+    tc = ("ce_tc_", "flash_tc_")
+    spills = {f: r for f, r in ptxas.items() if any(t in f for t in tc)
               and not ("0 bytes spill stores" in r and "0 bytes spill loads" in r)}
+    counts = {t: sum(t in f for f in ptxas) for t in tc}
     emit({"phase": "build", "seconds": seconds,
           "source_seconds": build.BUILD_SECONDS, "ptxas": ptxas,
-          "ce_tc_kernels": sum("ce_tc_" in f for f in ptxas),
-          "ce_tc_spills": spills})
-    if spills or not any("ce_tc_" in f for f in ptxas):
-        fail(f"bf16 ce_loss kernels spill or are missing: {spills}")
+          "tc_kernels": counts, "tc_spills": spills})
+    if spills or not all(counts.values()):
+        fail(f"tensor-core kernels spill or are missing: {spills} {counts}")
 
 
 RMS_CASES = [
@@ -314,13 +324,22 @@ def phase_flash(ops, ref) -> dict:
             if sdpa:
                 ke = k.repeat_interleave(h // kv, dim=1)
                 ve = v.repeat_interleave(h // kv, dim=1)
-                case["library_ms"] = time_ms(
-                    lambda: F.scaled_dot_product_attention(q, ke, ve,
-                                                           is_causal=True))
+
+                def lib():
+                    return F.scaled_dot_product_attention(q, ke, ve,
+                                                          is_causal=True)
+                case["library_ms"] = time_ms(lib)
+                case["library_device_ms"] = _device_ms(lib)
             pairs = _pairs(sq, sk, causal, window)
             nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+            flops = 4 * d * b * h * pairs
             case["bound_ms"], case["bound_by"] = bound(
-                nbytes, 4 * d * b * h * pairs, PEAK_FLOPS[dtype])
+                nbytes, flops, PEAK_FLOPS[dtype])
+            case["route"] = ops.flash_route(dtype, d)
+            case["peak_share"] = flops / (case["ms"] * 1e-3) / PEAK_FLOPS[dtype]
+            if case["route"] == "tensor_core":
+                _device_times(case, lambda: ops.flash_attention(q, k, v, **kw),
+                              ("flash_tc_fwd",), flops)
             emit(case)
             if not err <= TOL[dtype]:
                 fail(f"flash_attention {case['shape']} {kw} {dtype}: err {err}")
@@ -343,11 +362,25 @@ def _flash_bwd_case(ops, ref, q, k, v, o, kw, pairs, gen, sdpa) -> dict:
     got = ops._flash_bwd(q, k, v, o, lse, do, *args)
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     err = max(rel_err(g, w) for g, w in zip(got, want))
+    route = ops.flash_route(dtype, d)
     case = {"phase": "flash_attention_bwd",
             "shape": [b, h, kv, sq, k.shape[2], d], "dtype": dt_name(dtype),
-            **kw,
+            **kw, "route": route,
             "max_abs_err": max(max_err(g, w) for g, w in zip(got, want)),
             "rel_err": err, "tol": GRAD_TOL[dtype], "library_ms": None}
+    if route == "tensor_core":        # P and dS rounded to bf16, no atomics
+        want = ref.flash_attention_bwd_rounded_ref(q, k, v, o, lse, do, **kw)
+        case["rel_err_rounded"] = max(rel_err(g, w)
+                                      for g, w in zip(got, want))
+        err = max(err, case["rel_err_rounded"])
+        again = ops._flash_bwd(q, k, v, o, lse, do, *args)
+        case["bitwise_repeat"] = all(torch.equal(g, a)
+                                     for g, a in zip(got, again))
+        case["splits"] = ops.flash_dkdv_splits(
+            b, kv, k.shape[2], h // kv,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        del again
+    del want
     if dtype == torch.float32:        # and autograd of the plain forward
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         ga = torch.autograd.grad(ref.flash_attention_ref(*leaves, **kw),
@@ -361,17 +394,50 @@ def _flash_bwd_case(ops, ref, q, k, v, o, kw, pairs, gen, sdpa) -> dict:
         ql = q.clone().requires_grad_()
         kl = k.repeat_interleave(h // kv, dim=1).requires_grad_()
         vl = v.repeat_interleave(h // kv, dim=1).requires_grad_()
-        case["library_ms"] = _grad_time(
-            F.scaled_dot_product_attention(ql, kl, vl, is_causal=True),
-            (ql, kl, vl), do)
+        lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        case["library_ms"] = _grad_time(lib, (ql, kl, vl), do)
+        case["library_device_ms"] = _device_ms(
+            lambda: torch.autograd.grad(lib, (ql, kl, vl), do,
+                                        retain_graph=True))
+        del lib
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * b * h * sq
-    case["bound_ms"], case["bound_by"] = bound(
-        nbytes, 10 * d * b * h * pairs, PEAK_FLOPS[dtype])
+    flops = 10 * d * b * h * pairs
+    case["bound_ms"], case["bound_by"] = bound(nbytes, flops,
+                                               PEAK_FLOPS[dtype])
+    case["peak_share"] = flops / (case["ms"] * 1e-3) / PEAK_FLOPS[dtype]
+    if route == "tensor_core":
+        _device_times(case, lambda: ops._flash_bwd(q, k, v, o, lse, do, *args),
+                      ("flash_bwd_delta", "flash_tc_dkdv", "flash_tc_combine",
+                       "flash_tc_dq"), flops)
     emit(case)
     if not err <= GRAD_TOL[dtype]:
         fail(f"flash_attention backward {case['shape']} {kw} {dtype}: "
              f"rel err {err}")
+    if not case.get("bitwise_repeat", True):
+        fail(f"flash_attention backward {case['shape']} {kw}: two runs "
+             "differ")
     return case
+
+
+def _device_ms(fn) -> float:
+    """Device ms of every kernel one call of ``fn`` launches (profiler):
+    without the host's share, which CUDA events over back-to-back calls
+    include when the host is slower than the device."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+
+def _device_times(case: dict, fn, names, flops: float) -> None:
+    """A tensor-core flash case's device ms by kernel and in all, and the
+    share of the bf16 peak that the device time gives."""
+    case["kernel_ms"] = _kernel_ms(fn, names)
+    case["device_ms"] = _device_ms(fn)
+    case["device_peak_share"] = (flops / (case["device_ms"] * 1e-3)
+                                 / PEAK_FLOPS[torch.bfloat16])
 
 
 def _kernel_ms(fn, names) -> dict:
@@ -704,6 +770,15 @@ def expected_serving_launches(cfg, n_new: int) -> dict:
     return want
 
 
+def expected_routes(launches: dict) -> dict:
+    """bf16 at the models' head_dim (256): every flash launch, forward and
+    backward, on the tensor-core route."""
+    return {"fwd_tensor_core": launches.get("flash_attention", 0),
+            "fwd_cuda_core": 0,
+            "bwd_tensor_core": launches.get("flash_attention_bwd", 0),
+            "bwd_cuda_core": 0}
+
+
 def phase_serving(Model, ServeEngine, get_arch, ops,
                   arch: str = "gemma-2b") -> dict:
     cfg = get_arch(arch)
@@ -718,8 +793,9 @@ def phase_serving(Model, ServeEngine, get_arch, ops,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     res = eng.generate({"tokens": toks}, n_new)
-    launches = dict(ops.LAUNCHES)
+    launches, routes = dict(ops.LAUNCHES), dict(ops.FLASH_ROUTES)
     want = dict.fromkeys(launches, 0) | expected_serving_launches(cfg, n_new)
+    want_routes = expected_routes(want)
     in_range = bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all())
     emit({"phase": "serving", "arch": cfg.name, "n_layers": cfg.n_layers,
           "dtype": "bfloat16", "batch": batch, "prompt_len": prompt,
@@ -729,10 +805,14 @@ def phase_serving(Model, ServeEngine, get_arch, ops,
           "decode_tok_per_s": res.tokens_per_s,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": launches, "expected_launches": want,
+          "flash_routes": routes,
           "tokens_shape": list(res.tokens.shape), "ids_in_range": in_range,
           "sample_ids": res.tokens[0, :8].tolist()})
     if launches != want:
         fail(f"launches {launches} != {want}")
+    if routes != want_routes:
+        fail(f"flash routes {routes} != {want_routes}: bf16 attention at "
+             "head_dim 256 must run the tensor-core kernels")
     if res.tokens.shape != (batch, n_new) or not in_range:
         fail(f"generated ids out of shape or range: {res.tokens.shape}")
     phase_profile(model, torch.from_numpy(toks).cuda(), eng.max_len)
@@ -861,15 +941,18 @@ def phase_training(Model, ElasticTrainer, get_arch, ops,
                   remat=False)
     tr = ElasticTrainer(model, per_node_batch=8, seed=6)
     want = dict.fromkeys(ops.LAUNCHES, 0) | expected_train_launches(cfg)
+    want_routes = expected_routes(want)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     up_s = tr.rescale(1)
     steps, per_step, totals = [], [], dict.fromkeys(ops.LAUNCHES, 0)
+    routes = []
 
     def step():
         ops.reset_launches()
         m = tr.train_step()
         launches = dict(ops.LAUNCHES)
+        routes.append(dict(ops.FLASH_ROUTES))
         for k, c in launches.items():
             totals[k] += c
         steps.append(m)
@@ -903,10 +986,13 @@ def phase_training(Model, ElasticTrainer, get_arch, ops,
            "unpark_s": unpark_s, "params_on_host_when_parked": on_host,
            "params_bitwise_equal_across_park": same,
            "launches_per_step": per_step[-1], "expected_per_step": want,
-           "launches_total": totals}
+           "flash_routes_per_step": routes[-1], "launches_total": totals}
     emit(out)
     if not all(p == want for p in per_step):
         fail(f"training launches per step {per_step} != {want}")
+    if not all(r == want_routes for r in routes):
+        fail(f"flash routes per step {routes} != {want_routes}: bf16 "
+             "attention at head_dim 256 must run the tensor-core kernels")
     if not all(torch.isfinite(torch.tensor(losses))):
         fail(f"non-finite training loss {losses}")
     if not (same and on_host):

@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels and load them with ``ctypes``.
 
 Every ``csrc/*.cu`` (RMSNorm, flash attention, the fused cross-entropy
-and the Mamba-2 SSD scan, each forward and backward) is compiled by
+and the Mamba-2 SSD scan, each forward and backward; ``csrc/*.cuh`` are
+the headers they share) is compiled by
 ``nvcc`` for ``sm_90a`` into an object file, all sources at once in
 parallel, and the objects are linked into one shared library with a plain C interface under ``build/repro_torch/``
 at the repository root.  The library's name carries a hash of the
@@ -122,14 +123,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr,            # o, lse, q, k, v
         i32, i32, i32, i32, i32, i32,       # B, H, KV, Sq, Sk, D
         f32, i32, i32, f32,                 # scale, causal, window, logit_cap
-        i32, ptr]                           # dtype, stream
+        i32, i32, ptr]                      # dtype, tensor cores, stream
     lib.flash_attention_launch.restype = i32
     lib.flash_attention_bwd_launch.argtypes = [
-        ptr, ptr, ptr, ptr,                 # dq, dk, dv, delta
+        ptr, ptr, ptr, ptr, ptr,            # dq, dk, dv, delta, dK/dV partials
         ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, o, lse, dout
         i32, i32, i32, i32, i32, i32,       # B, H, KV, Sq, Sk, D
         f32, i32, i32, f32,                 # scale, causal, window, logit_cap
-        i32, ptr]                           # dtype, stream
+        i32, i32, i32, ptr]                 # dtype, tensor cores, splits, stream
     lib.flash_attention_bwd_launch.restype = i32
     lib.ce_loss_fwd_launch.argtypes = [
         ptr, ptr, ptr,                      # loss, logz, partials (bf16)

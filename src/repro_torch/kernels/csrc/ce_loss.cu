@@ -50,7 +50,9 @@
 // blocks), so the ring is refilled while a tile's epilogue runs.  TMA
 // zero-fills reads past every edge (T, V, d, the chunk) and clips stores
 // there; the epilogues mask logits past V to NEG_INF and P past V to 0.
-// Needs d % 8 == 0 and 16-byte-aligned bases (TMA's stride rule).
+// Needs d % 8 == 0 and 16-byte-aligned bases (TMA's stride rule).  The
+// Hopper building blocks (mbarriers, TMA, the wgmma descriptor and
+// products) come from hopper.cuh, shared with flash_attention.cu.
 //
 // fp32 (the parity checks only): the first, CUDA-core kernels, kept as
 // they were: ce_fwd (a block of 16 token rows streams the vocab) and
@@ -61,12 +63,7 @@
 // A launch allocates nothing (the wrapper passes the partials, the P
 // scratch and the dx sum) and returns a CUDA error code.
 
-#include <cuda.h>
-#include <dlfcn.h>
-
-#include <cstdint>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 using namespace repro_torch;
 
@@ -279,13 +276,14 @@ int launch_bwd_d(void* dx, void* dw, const void* x, const void* w,
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int BM = 128;            // output rows a block: two warpgroups of 64
 constexpr int BK = 64;             // depth a stage: 64 bf16 = one 128 B row
 constexpr int kConsumers = 2;      // consumer warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);   // + one producer warpgroup
 constexpr int kHalf = 64 * BK * 2;                 // one 64 x 64 bf16 box: 8 KB
 constexpr int kStageOut = 4 * kHalf;   // two warpgroups' 64 x 128 bf16 staging
-constexpr float kLog2e = 1.4426950408889634f;
 
 // A block's output tile is BM x N.  N = 256 halves the bytes each product
 // asks of L2 per operation (the 128 x 128 tile needs ~15 TB/s of it at
@@ -321,195 +319,6 @@ struct Args {
   float* acc;              // dx: fp32 (T, d) running sum over chunks
   float* out32;            // product: (m, n) fp32
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar), "r"(phase) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// One 2-d box of `map` at (inner c0, outer c1) into shared memory; the
-// copy completes on `bar`.  Boxes past the tensor's edge read as zeros.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-        "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile (offsets in
-// bytes).  K-major: rows of 128 B along M/N, 8-row groups SBO apart.
-// MN-major: 64-wide M/N blocks LBO apart, 8-row groups along K SBO apart.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// Shared memory -> the box of `map` at (c0, c1), clipped at the tensor's
-// edges; completes in the issuing thread's bulk group.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          uint32_t src, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3}], [%1];"
-      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// Barrier of one warpgroup (ids 1, 2; 0 is __syncthreads).
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;" ::"r"(wg + 1) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across a
-// wgmma fence or wait: the registers are "changed" here.
-template <int A>
-__device__ __forceinline__ void fence_acc(float (&d)[A]) {
-#pragma unroll
-  for (int i = 0; i < A; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x N, fp32) += A (64 x 16) . B (16 x N), both bf16 in shared
-// memory, N = 128 or 256 (the accumulator's size picks it); kTA / kTB:
-// the operand is MN-major.
-template <int kTA, int kTB>
-__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
-                                      uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %68;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
-}
-
-template <int kTA, int kTB>
-__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da,
-                                      uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, %131, %132;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
-}
 
 __host__ __device__ constexpr Layout layout_of(Kind k, int product) {
   return k == kFwd || k == kP ? kNT
@@ -584,26 +393,6 @@ __device__ __forceinline__ void mainloop(float (&acc)[N / 2], uint32_t base,
   wgmma_wait<0>();
   fence_acc(acc);
   if (prev >= 0 && signal) mbar_arrive(empty + 8 * prev);
-}
-
-// Element (row, col) of a warpgroup's 64 x N accumulator held in acc[e]:
-// e = 4 j + 2 i + c <-> row = 16 warp + lane / 4 + 8 i,
-// col = 8 j + 2 (lane % 4) + c.
-__device__ __forceinline__ int frag_row(int i) {
-  const int t = threadIdx.x % 128;
-  return (t / 32) * 16 + (t % 32) / 4 + 8 * i;
-}
-__device__ __forceinline__ int frag_col(int j) {
-  return 8 * j + 2 * (threadIdx.x % 4);
-}
-
-__device__ __forceinline__ float fast_exp(float x) {
-  return exp2f(x * kLog2e);
-}
-
-__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // The rows of P a thread holds: label, logZ and upstream gradient.
@@ -924,40 +713,12 @@ __global__ void ce_combine(const float* __restrict__ part, int splits,
 // Host side: tensor maps and launches
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up in the libcuda the CUDA
-// runtime has already loaded (the library does not link against libcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    if (h != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
 // A row-major (outer, inner) bf16 tensor, read in boxes of (box_outer,
 // 64) with the 128-byte swizzle wgmma reads; zeros past the edges.
 bool make_map(CUtensorMap* map, const void* base, long long inner,
               long long outer, int box_outer) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)tc::BK, (cuuint32_t)box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-            const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const long long dims[2] = {inner, outer};
+  return hopper::make_map_bf16(map, base, 2, dims, box_outer);
 }
 
 constexpr int kBadMap = (int)cudaErrorInvalidValue;

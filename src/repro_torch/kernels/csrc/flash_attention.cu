@@ -1,4 +1,4 @@
-// Causal flash attention (forward) for Hopper (sm_90a).
+// Flash attention (forward and backward) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
 // repro/kernels/flash_attention.py::flash_attention (body `_kernel`):
@@ -6,56 +6,78 @@
 // GQA through kv_head = h / (H / KV), an optional tanh softcap applied
 // after the scale and before the mask, a causal mask aligned top-left
 // (k_pos <= q_pos), an optional window (k_pos > q_pos - window), masking of
-// keys past Sk, the finite NEG_INF = -2**30, l clamped at 1e-30, q/k/v
-// widened to fp32 and the output written in q's type.
-//
-// Bound: operations.  At gemma-2b's prefill shape (S = 1024, D = 256) a
-// block does 2 * D operations per (q, k) pair against 4 * D bytes of K and
-// V per key tile shared by 32 query rows, well above the card's balance
-// point.  This first version is simple and right, not fast:
-//   * one block per (b, h, 32-row q tile); a loop over 32-key tiles inside
-//     the block replaces the TPU's sequential nk grid axis;
-//   * Q, K and V tiles are widened to fp32 in shared memory (rows padded
-//     by one float so a warp's column reads hit distinct banks); head_dim
-//     256 makes that ~101 KB, so the launcher raises the block's dynamic
-//     shared-memory limit with cudaFuncSetAttribute first;
-//   * each of the 128 threads computes a 2x4 tile of scores and owns a
-//     2 x D/8 slice of the fp32 accumulator in registers (64 registers at
-//     D = 256); the running max m, sum l and rescale factor live in shared
-//     memory;
-//   * the softmax pass gives each warp 8 rows, one lane per key;
-//   * the K/V head is indexed, never copied per query head;
-//   * key tiles that the causal mask or the window hides whole are
-//     skipped: the TPU kernel visits them, but their entries contribute
-//     exp(NEG_INF - m) = 0, so the result is the same;
-//   * the products run on the CUDA cores in fp32, with no tensor cores:
-//     fp32 inputs must agree with the plain version to 2e-5.  wgmma, TMA
-//     and bf16 tiles are later work.
-// When `lse` is not null the forward also writes each row's fp32
-// log-sum-exp, m + log(max(l, 1e-30)), for the backward; serving passes
-// null and is unchanged.
+// keys past Sk, the finite NEG_INF = -2**30, l clamped at 1e-30 and the
+// output written in q's type.  The K/V head is indexed, never copied per
+// query head.  When `lse` is not null the forward also writes each row's
+// fp32 log-sum-exp, m + log(max(l, 1e-30)), for the backward.
 //
 // Backward (no TPU counterpart: the JAX package trains through its plain
 // path).  With s the scaled, soft-capped, masked score and
 // p = exp(s - lse), dP = dO V^T, delta = rowsum(dO * O) and
 // dS = p * (dP - delta) * scale * (1 - (s / cap)^2) (the last factor only
 // with a softcap), dQ = dS K, dK = dS^T Q and dV = p^T dO.  Masked
-// entries get exactly 0.  Three kernels:
-//   * flash_bwd_delta: delta, a warp per row;
-//   * flash_bwd_dkdv: one block per (b, kv head, 16-key tile); it loops
-//     over the G query heads of its group and over the 32-row query tiles
-//     that can see its keys, so the GQA/MQA sum over heads happens inside
-//     the block, with no atomics; each thread keeps one key's dK and dV
-//     over D/16 columns in registers (32 floats at D = 256);
-//   * flash_bwd_dq: one block per (b, h, 32-row query tile), looping over
-//     the key tiles it sees; each thread keeps 1 row x D/8 columns of dQ.
-// The tiles are widened to fp32 in shared memory (~103 KB for dK/dV and
-// ~136 KB for dQ at D = 256, both raised with cudaFuncSetAttribute) and
-// every product runs on the CUDA cores in fp32, as in the forward.
-// Bound: operations (about 2.5 times the forward's).
-// A launch allocates nothing and returns cudaGetLastError().
+// entries get exactly 0.  No atomics: every output element is summed in a
+// fixed order, so two runs are bitwise equal.
+//
+// Bound: operations.  4 D operations per visible (q, k) pair forward
+// (S and P V) and 10 D backward (S again, dP, dV, dK, dQ; these kernels
+// do 14 D, as the dK/dV and the dQ kernel each recompute S and dP),
+// against 4 D bytes of K and V per key: at gemma-2b's shapes (D 256,
+// S 256-1024) far above the card's ~295 operations a byte.
+//
+// Two routes, chosen by the wrapper from the dtype and head_dim alone:
+//
+// bf16 with head_dim 64, 128 or 256 (every main path): the tensor cores
+// (namespace fa below).  Tiles are bf16 in shared memory with the
+// 128-byte swizzle, loaded by TMA (3-d maps (D, rows, heads), so a tile
+// never reads into the next head and rows past Sq or Sk read as zeros),
+// and multiplied by wgmma (hopper.cuh) into fp32 registers:
+//   * flash_tc_fwd: one block per (b, h, 128 q rows), the heaviest causal
+//     tiles launched first; two consumer warpgroups of 64 rows and a
+//     producer warpgroup (setmaxnreg 240 / 24) that loads Q once and
+//     streams 64-key K and V tiles through a ring of 2 (D 256) or 4
+//     stages.  S = Q K^T (m64n64k16, both K-major); softcap, masks (only
+//     on tiles that cross the diagonal, the window or Sk), the row max
+//     and sum in the accumulator's registers; P rounded to bf16 in
+//     registers is the A operand of O += P V (the RS form, V read
+//     MN-major through the transpose bit, m64nDk16), as the TPU kernel
+//     rounds p to v's type.  Key tiles that no row of a warpgroup sees
+//     are skipped.  O leaves through the warpgroup's rows of Q, swizzled,
+//     by TMA store.
+//   * flash_tc_dkdv: one block per (b * KV + kv head, head split, 64
+//     keys).  It walks the q tiles of its split's heads that see its keys:
+//     warpgroup 0 recomputes S^T = K Q^T and P^T = exp(S^T - lse), shares
+//     P^T fac with warpgroup 1 through shared memory (named barriers) and
+//     adds P^T dO to dV; warpgroup 1 forms dP^T = V dO^T and
+//     dS^T = P^T (dP^T - delta) fac and adds dS^T Q to dK (each 64 x D
+//     fp32, 128 registers a thread at D 256).  The G query heads of an
+//     MQA/GQA group are split across blocks (`splits`, chosen by the
+//     wrapper to fill the card); with more than one split each writes
+//     fp32 partials and flash_tc_combine adds them in split order.
+//   * flash_tc_dq: one block per (b, h, 64 q rows), one consumer
+//     warpgroup: S, dP, dS as above, dQ += dS K with K MN-major.
+//   * flash_bwd_delta (shared with the CUDA-core route): delta per row.
+//   P and dS are rounded to bf16 before their products, with fp32
+//   sums (kernels/ref.py::flash_attention_bwd_rounded_ref).  Needs
+//   16-byte-aligned bases (TMA); the wrapper refuses others.
+//
+// fp32 (the parity checks), and bf16 at any other head_dim (up to 256:
+// the tests' 32): the first, CUDA-core kernels, kept as they were.  One
+// block per (b, h, 32-row q tile) looping over 32-key tiles; Q, K and V
+// widened to fp32 in shared memory (rows padded by one float; ~101 KB
+// at D 256, raised with cudaFuncSetAttribute); each of 128 threads
+// computes a 2x4 score tile and owns a 2 x D/8 slice of the accumulator;
+// m, l and the rescale factor in shared memory; fully masked key tiles
+// skipped.  Backward: flash_bwd_delta; flash_bwd_dkdv, one block per
+// (b, kv head, 16 keys) looping over the group's heads and the q tiles
+// that see its keys; flash_bwd_dq, one block per (b, h, 32 q rows).
+// Every product in fp32 on the CUDA cores, so fp32 holds the 2e-5 / 1e-4
+// tolerances that TF32 would not.
+//
+// A launch allocates nothing (the wrapper passes the scratch: delta and
+// the dK/dV partials) and returns a CUDA error code.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 using namespace repro_torch;
 
@@ -580,19 +602,711 @@ int launch_bwd_d(const BwdParams& p, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: wgmma tiles fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace fa {
+
+using namespace hopper;
+
+constexpr int kRows = 64;          // rows of a warpgroup's tile; keys a tile
+constexpr int kBoxBytes = 64 * 64 * 2;   // one 64 x 64 bf16 box: 8 KB
+constexpr int kConsumers = 2;      // consumer warpgroups (forward, dK/dV)
+
+struct TcArgs {
+  int B, H, KV, Sq, Sk;
+  float scale, logit_cap;
+  int causal, window;
+  float* lse;            // (B, H, Sq) fp32: written by the forward (or
+                         // null), read by the backward
+  const float* delta;    // (B, H, Sq) fp32, backward
+  float* part;           // (2, splits, B KV Sk D) fp32 dK / dV partials
+  int splits;            // head splits of the dK/dV kernel
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+};
+
+// Shared-memory plan of each kernel for head_dim D: a 64-row tile of Q, K,
+// V or dO is D / 64 boxes of 64 rows x 128 B (box c at c * 8 KB), 128-byte
+// swizzled, so one tile serves as a K-major operand (rows along M or N,
+// D along K) and as an MN-major one (D along N, rows along K).
+template <int D>
+struct Plan {
+  static constexpr int kTile = kRows * D * 2;
+  // 2 stages at D 256 (the 227 KB cap), else 4
+  static constexpr int kStages = D == 256 ? 2 : 4;
+  // forward: Q (128 rows) + a ring of K, V tiles
+  static constexpr int kFwdSmem =
+      1024 + 2 * kTile + kStages * 2 * kTile + 8 * (1 + 2 * kStages);
+  // dK/dV: K, V + a ring of Q, dO tiles + the shared P^T (64 x 64 fp32)
+  static constexpr int kPf = kRows * kRows * 4;
+  static constexpr int kDkdvSmem =
+      1024 + 2 * kTile + kStages * 2 * kTile + kPf + 8 * (1 + 2 * kStages);
+  // dQ: Q, dO + a ring of K, V tiles
+  static constexpr int kDqSmem = kFwdSmem;
+};
+static_assert(Plan<256>::kDkdvSmem <= 232448, "shared memory");
+
+// Is key kp visible to query qp (top-left causal alignment, window, Sk)?
+__device__ __forceinline__ bool visible(const TcArgs& p, int qp, int kp) {
+  bool ok = kp < p.Sk && qp < p.Sq;
+  if (p.causal) ok = ok && kp <= qp;
+  if (p.window > 0) ok = ok && kp > qp - p.window;
+  return ok;
+}
+
+// The scaled, soft-capped score of a raw product; *fac its derivative.
+__device__ __forceinline__ float score(const TcArgs& p, float dot,
+                                       float* fac) {
+  float s = dot * p.scale;
+  float f = p.scale;
+  if (p.logit_cap > 0.f) {
+    s = p.logit_cap * tanhf(s / p.logit_cap);
+    const float t = s / p.logit_cap;
+    f *= 1.f - t * t;
+  }
+  *fac = f;
+  return s;
+}
+
+// acc (64 x 64) = A (64 rows x D) . B (64 rows x D)^T, both K-major tiles.
+template <int D>
+__device__ __forceinline__ void product_nt(float (&acc)[32], uint32_t a,
+                                           uint32_t b) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma<0, 0>(acc, desc(a + off, 16, 1024), desc(b + off, 16, 1024));
+  }
+}
+
+// acc (64 x D) += A (64 x 64, the bf16 fragments of a product tile) . B,
+// B a 64-row tile read MN-major (64 along K, D along N).
+template <int D>
+__device__ __forceinline__ void product_rs(float (&acc)[D / 2],
+                                           const float (&a)[32], uint32_t b) {
+  uint32_t f[4][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) pack_a(a, k, f[k]);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) fence_regs(f[k]);
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    wgmma_rs<1>(acc, f[k][0], f[k][1], f[k][2], f[k][3],
+                desc(b + k * 2048, kBoxBytes, 1024));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+}
+
+__device__ __forceinline__ void mbar_setup(uint32_t bars, int stages,
+                                           int empty_count) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);                              // the block's fixed tiles
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(bars + 8 + 8 * i, 1);                // full
+      mbar_init(bars + 8 + 8 * (stages + i), empty_count);   // empty
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Loads one tile (D / 64 boxes, `box` bytes apart) of a 3-d map at
+// (row, head).
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m,
+                                          uint32_t bar, int row, int head,
+                                          int box = kBoxBytes) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    tma_load3(dst + c * box, m, bar, c * 64, row, head);
+}
+
+// ---- forward ---------------------------------------------------------------
+
+// One block per (b, h, 128-row q tile), the heaviest causal tiles first.
+// Warpgroups 0 and 1 own 64 q rows each; warpgroup 2 loads Q once and
+// streams K and V tiles of 64 keys through the ring with TMA.
+template <int D>
+__global__ void __launch_bounds__(128 * (kConsumers + 1), 1)
+flash_tc_fwd(const __grid_constant__ CUtensorMap mq,
+             const __grid_constant__ CUtensorMap mk,
+             const __grid_constant__ CUtensorMap mv,
+             const __grid_constant__ CUtensorMap mo, const TcArgs p) {
+  using P = Plan<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base;                          // 128 rows of Q
+  const uint32_t ring = base + 2 * P::kTile;
+  const uint32_t bars = ring + P::kStages * 2 * P::kTile;
+  const uint32_t full = bars + 8, empty = full + 8 * P::kStages;
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.x, h = bh % p.H, b = bh / p.H;
+  const int bkv = b * p.KV + h / (p.H / p.KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 2 * kRows;
+  const int nk = (p.Sk + kRows - 1) / kRows;
+  const int kt_end = p.causal ? min(nk, (q0 + 2 * kRows - 1) / kRows + 1) : nk;
+  const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / kRows : 0;
+
+  mbar_setup(bars, P::kStages, kConsumers);
+  if (wg == kConsumers) {              // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(bars, 2 * P::kTile);
+      load_tile<D>(sq, &mq, bars, q0, bh, 2 * kBoxBytes);  // 128-row boxes
+      int s = 0;
+      uint32_t ph = 0;
+      for (int kt = kt_begin; kt < kt_end; ++kt) {
+        mbar_wait(empty + 8 * s, ph ^ 1);
+        const uint32_t st = ring + s * 2 * P::kTile;
+        mbar_expect_tx(full + 8 * s, 2 * P::kTile);
+        load_tile<D>(st, &mk, full + 8 * s, kt * kRows, bkv);
+        load_tile<D>(st + P::kTile, &mv, full + 8 * s, kt * kRows, bkv);
+        if (++s == P::kStages) { s = 0; ph ^= 1; }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  const int r0 = q0 + wg * kRows;      // this warpgroup's first row
+  // its rows of Q: box c of the 128-row tile is 16 KB, its half 8 KB on
+  const uint32_t qa = sq + wg * kRows * 128;
+  int row[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = r0 + frag_row(i);
+    m[i] = kNegInf;
+    l[i] = 0.f;              // this thread's columns; the row's at the end
+  }
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  mbar_wait(bars, 0);
+
+  int s = 0;
+  uint32_t ph = 0;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kRows;
+    mbar_wait(full + 8 * s, ph);
+    const uint32_t kb = ring + s * 2 * P::kTile, vb = kb + P::kTile;
+    // does a row of this warpgroup see a key of the tile; must it mask?
+    const bool seen = r0 < p.Sq && (!p.causal || k0 <= r0 + kRows - 1) &&
+                      (p.window <= 0 || k0 + kRows - 1 > r0 - p.window);
+    if (seen) {
+      const bool edge = (p.causal && k0 + kRows - 1 > r0) ||
+                        (p.window > 0 && k0 <= r0 + kRows - 1 - p.window) ||
+                        k0 + kRows > p.Sk;
+      float sc[32];
+      // S = Q K^T (Q's 128-row boxes are 16 KB apart)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      fence_acc(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma<0, 0>(sc, desc(qa + (kk / 4) * 2 * kBoxBytes + off, 16, 1024),
+                    desc(kb + (kk / 4) * kBoxBytes + off, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+
+      // online softmax in the accumulator's registers; a row's four
+      // threads agree on its max through two shuffles
+      float tmax[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = sc[4 * j + 2 * i + c];
+            float f;
+            x = score(p, x, &f);
+            if (edge && !visible(p, row[i], k0 + frag_col(j) + c))
+              x = kNegInf;
+            tmax[i] = fmaxf(tmax[i], x);
+          }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+        const float mn = fmaxf(m[i], tmax[i]);
+        corr[i] = fast_exp(m[i] - mn);
+        m[i] = mn;
+        l[i] *= corr[i];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = sc[4 * j + 2 * i + c];
+            x = fast_exp(x - m[i]);
+            l[i] += x;
+          }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          o[4 * j + 2 * i] *= corr[i];
+          o[4 * j + 2 * i + 1] *= corr[i];
+        }
+      // O += P V: P rounded to bf16 in registers (the RS form), V MN-major
+      product_rs<D>(o, sc, vb);
+    }
+    if (threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * s);
+    if (++s == P::kStages) { s = 0; ph ^= 1; }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    inv[i] = 1.f / fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && threadIdx.x % 4 == 0 && row[i] < p.Sq)
+      p.lse[(size_t)bh * p.Sq + row[i]] = m[i] + logf(fmaxf(l[i], 1e-30f));
+  }
+  // O in bf16 through this warpgroup's (now free) rows of Q, in the
+  // swizzled layout the map stores, then one TMA store a box; the 3-d map
+  // drops rows past Sq
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = frag_row(i);
+      const uint32_t at = qa + (j / 8) * 2 * kBoxBytes + r * 128 +
+                          (((j % 8) ^ (r % 8)) << 4) + 4 * (threadIdx.x % 4);
+      asm volatile("st.shared.b32 [%0], %1;" ::"r"(at),
+                   "r"(bf16x2(o[4 * j + 2 * i] * inv[i],
+                              o[4 * j + 2 * i + 1] * inv[i]))
+                   : "memory");
+    }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  wg_sync(wg);
+  if (threadIdx.x % 128 == 0) {
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      tma_store3(&mo, qa + c * 2 * kBoxBytes, c * 64, r0, bh);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
+}
+
+// ---- backward: dK and dV ------------------------------------------------
+
+// One block per (b * KV + kv head, head split, 64-key tile), the key
+// tiles that most q tiles see first.  It walks the q tiles of the heads of its
+// split that can see its keys; warpgroup 2 keeps K and V and streams Q
+// and dO tiles.  Per tile, warpgroup 0 forms S^T = K Q^T and
+// P^T = exp(S^T - lse), hands P^T times ds/d(q.k) to warpgroup 1 through
+// shared memory and adds P^T dO to dV; warpgroup 1 forms dP^T = V dO^T,
+// dS^T = P^T (dP^T - delta) fac and adds dS^T Q to dK.  With one split
+// dK and dV go out in bf16; with more, each split writes fp32 partials
+// that flash_tc_combine adds in split order.
+template <int D>
+__global__ void __launch_bounds__(128 * (kConsumers + 1), 1)
+flash_tc_dkdv(const __grid_constant__ CUtensorMap mq,
+              const __grid_constant__ CUtensorMap mk,
+              const __grid_constant__ CUtensorMap mv,
+              const __grid_constant__ CUtensorMap mdo, const TcArgs p) {
+  using P = Plan<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t ks = base, vs = base + P::kTile;
+  const uint32_t ring = base + 2 * P::kTile;
+  const uint32_t pf = ring + P::kStages * 2 * P::kTile;
+  float4* pfp = reinterpret_cast<float4*>(smem_raw + (pf - raw));
+  const uint32_t bars = pf + P::kPf;
+  const uint32_t full = bars + 8, empty = full + 8 * P::kStages;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int bkv = blockIdx.x, split = blockIdx.y;
+  const int k0 = blockIdx.z * kRows;
+  const int b = bkv / p.KV, kvh = bkv % p.KV, G = p.H / p.KV;
+  const int g0 = split * G / p.splits, g1 = (split + 1) * G / p.splits;
+  const int nq = (p.Sq + kRows - 1) / kRows;
+  const int qt_begin = p.causal ? k0 / kRows : 0;
+  const int qt_end =
+      p.window > 0 ? min(nq, (k0 + kRows - 2 + p.window) / kRows + 1) : nq;
+  const int nqt = max(0, qt_end - qt_begin);
+  const int ntiles = (g1 - g0) * nqt;
+
+  mbar_setup(bars, P::kStages, kConsumers);
+  if (wg == kConsumers) {              // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(bars, 2 * P::kTile);
+      load_tile<D>(ks, &mk, bars, k0, bkv);
+      load_tile<D>(vs, &mv, bars, k0, bkv);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int it = 0; it < ntiles; ++it) {
+        const int hq = b * p.H + kvh * G + g0 + it / nqt;
+        const int q0 = (qt_begin + it % nqt) * kRows;
+        mbar_wait(empty + 8 * s, ph ^ 1);
+        const uint32_t st = ring + s * 2 * P::kTile;
+        mbar_expect_tx(full + 8 * s, 2 * P::kTile);
+        load_tile<D>(st, &mq, full + 8 * s, q0, hq);
+        load_tile<D>(st + P::kTile, &mdo, full + 8 * s, q0, hq);
+        if (++s == P::kStages) { s = 0; ph ^= 1; }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  int key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) key[i] = k0 + frag_row(i);
+  float acc[D / 2];                    // dV (warpgroup 0) or dK (1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(bars, 0);
+
+  int s = 0;
+  uint32_t ph = 0;
+  for (int it = 0; it < ntiles; ++it) {
+    const int hq = b * p.H + kvh * G + g0 + it / nqt;
+    const int q0 = (qt_begin + it % nqt) * kRows;
+    const float* rowstat = (wg == 0 ? p.lse : p.delta) + (size_t)hq * p.Sq;
+    mbar_wait(full + 8 * s, ph);
+    const uint32_t qs = ring + s * 2 * P::kTile, dos = qs + P::kTile;
+    float tt[32];
+    if (wg == 0) {
+      product_nt<D>(tt, ks, qs);       // S^T = K Q^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(tt);
+      if (it > 0) named_sync(4, 256);  // warpgroup 1 has read the last P^T
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float pfv[4];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int q = q0 + frag_col(j) + c;
+          const float lse = q < p.Sq ? rowstat[q] : 0.f;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float& x = tt[4 * j + 2 * i + c];
+            float f;
+            const float sc = score(p, x, &f);
+            x = visible(p, q, key[i]) ? fast_exp(sc - lse) : 0.f;
+            pfv[2 * i + c] = x * f;
+          }
+        }
+        pfp[j * 128 + t] = make_float4(pfv[0], pfv[1], pfv[2], pfv[3]);
+      }
+      named_arrive(3, 256);
+      product_rs<D>(acc, tt, dos);     // dV += P^T dO
+    } else {
+      product_nt<D>(tt, vs, dos);      // dP^T = V dO^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(tt);
+      named_sync(3, 256);              // P^T fac is in shared memory
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 pv = pfp[j * 128 + t];
+        const float pfv[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int q = q0 + frag_col(j) + c;
+          const float dl = q < p.Sq ? rowstat[q] : 0.f;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float& x = tt[4 * j + 2 * i + c];
+            x = pfv[2 * i + c] * (x - dl);
+          }
+        }
+      }
+      if (it + 1 < ntiles) named_arrive(4, 256);
+      product_rs<D>(acc, tt, qs);      // dK += dS^T Q
+    }
+    if (t == 0) mbar_arrive(empty + 8 * s);
+    if (++s == P::kStages) { s = 0; ph ^= 1; }
+  }
+
+  // rows past Sk are dropped; every other row is written (zeros when no
+  // q tile sees it)
+  const size_t n = (size_t)p.B * p.KV * p.Sk * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= p.Sk) continue;
+    const size_t at0 = ((size_t)bkv * p.Sk + key[i]) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const size_t at = at0 + frag_col(j);
+      const float x = acc[4 * j + 2 * i], y = acc[4 * j + 2 * i + 1];
+      if (p.splits == 1) {
+        __nv_bfloat16* out = wg == 0 ? p.dv : p.dk;
+        *reinterpret_cast<__nv_bfloat162*>(out + at) =
+            __floats2bfloat162_rn(x, y);
+      } else {
+        float* part = p.part + ((size_t)(wg == 0) * p.splits + split) * n;
+        *reinterpret_cast<float2*>(part + at) = make_float2(x, y);
+      }
+    }
+  }
+}
+
+// dK (part[0]) and dV (part[1]) as the sum of the splits' partials, in
+// split order; n = B KV Sk D elements each, two a thread.
+__global__ void flash_tc_combine(const float* __restrict__ part, int splits,
+                                 long long n, __nv_bfloat16* __restrict__ dk,
+                                 __nv_bfloat16* __restrict__ dv) {
+  const long long i = 2 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= n) return;
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    float x = 0.f, y = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float2 v =
+          *reinterpret_cast<const float2*>(part + (w * splits + s) * n + i);
+      x += v.x;
+      y += v.y;
+    }
+    *reinterpret_cast<__nv_bfloat162*>((w == 0 ? dk : dv) + i) =
+        __floats2bfloat162_rn(x, y);
+  }
+}
+
+// ---- backward: dQ --------------------------------------------------------
+
+// One block per (b, h, 64-row q tile), the heaviest causal tiles first:
+// one consumer warpgroup (which needs no more than the 255 registers a
+// 256-thread block allows) and one producer warpgroup that loads Q and dO
+// once and streams K and V tiles.  Per key tile: S = Q K^T and
+// dP = dO V^T, dS = P (dP - delta) fac, dQ += dS K with K MN-major.
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+flash_tc_dq(const __grid_constant__ CUtensorMap mq,
+            const __grid_constant__ CUtensorMap mk,
+            const __grid_constant__ CUtensorMap mv,
+            const __grid_constant__ CUtensorMap mdo, const TcArgs p) {
+  using P = Plan<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t qs = base, dos = base + P::kTile;
+  const uint32_t ring = base + 2 * P::kTile;
+  const uint32_t bars = ring + P::kStages * 2 * P::kTile;
+  const uint32_t full = bars + 8, empty = full + 8 * P::kStages;
+  const int bh = blockIdx.x, h = bh % p.H, b = bh / p.H;
+  const int bkv = b * p.KV + h / (p.H / p.KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int nk = (p.Sk + kRows - 1) / kRows;
+  const int kt_end = p.causal ? min(nk, (q0 + kRows - 1) / kRows + 1) : nk;
+  const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / kRows : 0;
+
+  mbar_setup(bars, P::kStages, 1);
+  if (threadIdx.x >= 128) {            // producer
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(bars, 2 * P::kTile);
+      load_tile<D>(qs, &mq, bars, q0, bh);
+      load_tile<D>(dos, &mdo, bars, q0, bh);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int kt = kt_begin; kt < kt_end; ++kt) {
+        mbar_wait(empty + 8 * s, ph ^ 1);
+        const uint32_t st = ring + s * 2 * P::kTile;
+        mbar_expect_tx(full + 8 * s, 2 * P::kTile);
+        load_tile<D>(st, &mk, full + 8 * s, kt * kRows, bkv);
+        load_tile<D>(st + P::kTile, &mv, full + 8 * s, kt * kRows, bkv);
+        if (++s == P::kStages) { s = 0; ph ^= 1; }
+      }
+    }
+    return;
+  }
+
+  int row[2];
+  float lse[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = q0 + frag_row(i);
+    const bool in = row[i] < p.Sq;
+    lse[i] = in ? p.lse[(size_t)bh * p.Sq + row[i]] : 0.f;
+    dl[i] = in ? p.delta[(size_t)bh * p.Sq + row[i]] : 0.f;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  mbar_wait(bars, 0);
+
+  int s = 0;
+  uint32_t ph = 0;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kRows;
+    mbar_wait(full + 8 * s, ph);
+    const uint32_t kb = ring + s * 2 * P::kTile, vb = kb + P::kTile;
+    float sc[32], dp[32];
+    product_nt<D>(sc, qs, kb);         // S = Q K^T
+    product_nt<D>(dp, dos, vb);        // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
+    fence_acc(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * i + c;
+          float f;
+          const float x = score(p, sc[e], &f);
+          const float pr = visible(p, row[i], k0 + frag_col(j) + c)
+                               ? fast_exp(x - lse[i])
+                               : 0.f;
+          sc[e] = pr * (dp[e] - dl[i]) * f;
+        }
+    product_rs<D>(dq, sc, kb);         // dQ += dS K
+    if (threadIdx.x == 0) mbar_arrive(empty + 8 * s);
+    if (++s == P::kStages) { s = 0; ph ^= 1; }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= p.Sq) continue;
+    __nv_bfloat16* out = p.dq + ((size_t)bh * p.Sq + row[i]) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + frag_col(j)) =
+          __floats2bfloat162_rn(dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
+  }
+}
+
+// ---- host ----------------------------------------------------------------
+
+constexpr int kBadMap = (int)cudaErrorInvalidValue;
+
+// A (heads, rows, D) bf16 tensor read or written in 64 x box_rows boxes.
+bool make_map(CUtensorMap* map, const void* base, int D, int rows,
+              int heads, int box_rows) {
+  const long long dims[3] = {D, rows, heads};
+  return make_map_bf16(map, base, 3, dims, box_rows);
+}
+
+template <typename K, typename... Maps>
+int launch(K kernel, dim3 grid, int threads, int smem, const TcArgs& p,
+           cudaStream_t st, const Maps&... maps) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, threads, smem, st>>>(maps..., p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int fwd(const Params& a, cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mo;
+  if (!make_map(&mq, a.q, D, a.Sq, a.B * a.H, 2 * kRows) ||
+      !make_map(&mk, a.k, D, a.Sk, a.B * a.KV, kRows) ||
+      !make_map(&mv, a.v, D, a.Sk, a.B * a.KV, kRows) ||
+      !make_map(&mo, a.o, D, a.Sq, a.B * a.H, kRows))
+    return kBadMap;
+  TcArgs p{};
+  p.B = a.B;
+  p.H = a.H;
+  p.KV = a.KV;
+  p.Sq = a.Sq;
+  p.Sk = a.Sk;
+  p.scale = a.scale;
+  p.logit_cap = a.logit_cap;
+  p.causal = a.causal;
+  p.window = a.window;
+  p.lse = a.lse;
+  const dim3 grid(a.B * a.H, (a.Sq + 2 * kRows - 1) / (2 * kRows));
+  return launch(flash_tc_fwd<D>, grid, 128 * (kConsumers + 1),
+                Plan<D>::kFwdSmem, p, st, mq, mk, mv, mo);
+}
+
+template <int D>
+int bwd(const BwdParams& q, float* part, int splits, cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map(&mq, q.q, D, q.Sq, q.B * q.H, kRows) ||
+      !make_map(&mk, q.k, D, q.Sk, q.B * q.KV, kRows) ||
+      !make_map(&mv, q.v, D, q.Sk, q.B * q.KV, kRows) ||
+      !make_map(&mdo, q.dout, D, q.Sq, q.B * q.H, kRows))
+    return kBadMap;
+  const long long rows = (long long)q.B * q.H * q.Sq;
+  flash_bwd_delta<__nv_bfloat16>
+      <<<(unsigned)((rows + 3) / 4), 128, 0, st>>>(q);
+  int e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  TcArgs p{};
+  p.B = q.B;
+  p.H = q.H;
+  p.KV = q.KV;
+  p.Sq = q.Sq;
+  p.Sk = q.Sk;
+  p.scale = q.scale;
+  p.logit_cap = q.logit_cap;
+  p.causal = q.causal;
+  p.window = q.window;
+  p.lse = const_cast<float*>(q.lse);
+  p.delta = q.delta;
+  p.part = part;
+  p.splits = splits;
+  p.dq = static_cast<__nv_bfloat16*>(q.dq);
+  p.dk = static_cast<__nv_bfloat16*>(q.dk);
+  p.dv = static_cast<__nv_bfloat16*>(q.dv);
+  const int nk = (q.Sk + kRows - 1) / kRows;
+  e = launch(flash_tc_dkdv<D>, dim3(q.B * q.KV, splits, nk),
+             128 * (kConsumers + 1), Plan<D>::kDkdvSmem, p, st, mq, mk, mv,
+             mdo);
+  if (e != 0) return e;
+  if (splits > 1) {
+    const long long n = (long long)q.B * q.KV * q.Sk * D;
+    flash_tc_combine<<<(unsigned)((n / 2 + 255) / 256), 256, 0, st>>>(
+        part, splits, n, p.dk, p.dv);
+    e = (int)cudaGetLastError();
+    if (e != 0) return e;
+  }
+  const dim3 grid(q.B * q.H, (q.Sq + kRows - 1) / kRows);
+  return launch(flash_tc_dq<D>, grid, 256, Plan<D>::kDqSmem, p, st, mq, mk,
+                mv, mdo);
+}
+
+}  // namespace fa
+
 }  // namespace
 
 // `lse` may be null (no gradient wanted); otherwise (B, H, Sq) fp32.
+// tc = 1: the tensor-core kernels (bf16, D 64 / 128 / 256 only).
 extern "C" int flash_attention_launch(void* o, void* lse, const void* q,
                                       const void* k, const void* v, int B,
                                       int H, int KV, int Sq, int Sk, int D,
                                       float scale, int causal, int window,
-                                      float logit_cap, int dtype,
+                                      float logit_cap, int dtype, int tc,
                                       void* stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
   const Params p{q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk, D,
                  scale, logit_cap, causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc) {
+    if (dtype != kBFloat16 || Sk == 0) return (int)cudaErrorInvalidValue;
+    switch (D) {
+      case 64: return fa::fwd<64>(p, st);
+      case 128: return fa::fwd<128>(p, st);
+      case 256: return fa::fwd<256>(p, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (dtype) {
     case kFloat32: return launch_d<float>(p, st);
     case kBFloat16: return launch_d<__nv_bfloat16>(p, st);
@@ -601,17 +1315,32 @@ extern "C" int flash_attention_launch(void* o, void* lse, const void* q,
 }
 
 // dq (B,H,Sq,D), dk and dv (B,KV,Sk,D) in the inputs' type; lse and the
-// scratch delta (B,H,Sq) fp32.
+// scratch delta (B,H,Sq) fp32.  tc = 1: the tensor-core kernels, with
+// `splits` head splits of the dK/dV kernel and, when splits > 1, the
+// scratch `part` of 2 x splits x B x KV x Sk x D fp32.
 extern "C" int flash_attention_bwd_launch(
-    void* dq, void* dk, void* dv, void* delta, const void* q, const void* k,
-    const void* v, const void* o, const void* lse, const void* dout, int B,
-    int H, int KV, int Sq, int Sk, int D, float scale, int causal, int window,
-    float logit_cap, int dtype, void* stream) {
+    void* dq, void* dk, void* dv, void* delta, void* part, const void* q,
+    const void* k, const void* v, const void* o, const void* lse,
+    const void* dout, int B, int H, int KV, int Sq, int Sk, int D,
+    float scale, int causal, int window, float logit_cap, int dtype, int tc,
+    int splits, void* stream) {
   if (B == 0 || H == 0 || Sq == 0 || Sk == 0) return 0;
   const BwdParams p{q, k, v, o, dout, static_cast<const float*>(lse),
                     static_cast<float*>(delta), dq, dk, dv, B, H, KV, Sq, Sk,
                     D, scale, logit_cap, causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc) {
+    if (dtype != kBFloat16 || splits < 1 || splits > H / KV ||
+        (splits > 1 && part == nullptr))
+      return (int)cudaErrorInvalidValue;
+    float* pt = static_cast<float*>(part);
+    switch (D) {
+      case 64: return fa::bwd<64>(p, pt, splits, st);
+      case 128: return fa::bwd<128>(p, pt, splits, st);
+      case 256: return fa::bwd<256>(p, pt, splits, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (dtype) {
     case kFloat32: return launch_bwd_d<float>(p, st);
     case kBFloat16: return launch_bwd_d<__nv_bfloat16>(p, st);

@@ -29,8 +29,17 @@ LAUNCHES: dict[str, int] = {
     "ssd_scan": 0, "ssd_scan_bwd": 0,
 }
 
+# Flash launches by route (``flash_route``), so a run can show which
+# kernels its attention went through; reset with ``LAUNCHES``.
+FLASH_ROUTES: dict[str, int] = {
+    "fwd_tensor_core": 0, "fwd_cuda_core": 0,
+    "bwd_tensor_core": 0, "bwd_cuda_core": 0,
+}
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+FLASH_TC_HEAD_DIMS = (64, 128, 256)   # flash_attention.cu, namespace fa
+FLASH_TILE = 64         # keys a tile of the tensor-core dK/dV kernel
 CE_MAX_DIM = 4096       # ce_loss.cu, fp32 kernels: d <= 8 x 512 threads
 CE_TILE = 128           # ce_loss.cu, bf16: output tile rows
 CE_VTILE = 256          # ce_loss.cu, bf16 forward: vocab columns a tile
@@ -40,8 +49,9 @@ SSD_MAX_P, SSD_MAX_N, SSD_MAX_CHUNK = 64, 128, 256   # ssd_scan.cu tiles
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FLASH_ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cuda(x: torch.Tensor, what: str) -> bool:
@@ -102,32 +112,65 @@ def _rms_norm_bwd(x, scale, dy, eps):
     return dx, dscale
 
 
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which flash kernels a call runs, from the dtype and head_dim alone:
+    "tensor_core" (wgmma, TMA) for bf16 at head_dim 64, 128 or 256;
+    "cuda_core" (the first, fp32-product kernels) for fp32, which the
+    parity checks hold to 2e-5 / 1e-4, and for bf16 at any other head_dim
+    (the tensor-core kernels are instantiated for those three only)."""
+    return ("tensor_core" if dtype == torch.bfloat16
+            and head_dim in FLASH_TC_HEAD_DIMS else "cuda_core")
+
+
+def flash_dkdv_splits(b: int, kv: int, sk: int, group: int, sms: int) -> int:
+    """Head splits of the tensor-core dK/dV kernel: its blocks are (b * kv
+    + kv head, split, 64-key tile), so about two blocks an SM on ``sms``
+    SMs, at most one split a query head of the ``group``."""
+    blocks = b * kv * -(-sk // FLASH_TILE)
+    return max(1, min(group, round(2 * sms / blocks)))
+
+
 def _flash_fwd(q, k, v, causal, window, logit_cap, scale, want_lse):
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
+    route = flash_route(q.dtype, d)
     out = torch.empty_like(q)
     lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
            if want_lse else None)
     build.check(build.library().flash_attention_launch(
         out.data_ptr(), _ptr(lse), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         b, h, kv, sq, sk, d, scale, int(causal), int(window),
-        float(logit_cap), _DTYPES[q.dtype], _stream()), "flash_attention")
+        float(logit_cap), _DTYPES[q.dtype], int(route == "tensor_core"),
+        _stream()), "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    FLASH_ROUTES["fwd_" + route] += 1
     return out, lse
 
 
 def _flash_bwd(q, k, v, o, lse, do, causal, window, logit_cap, scale):
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
+    route = flash_route(q.dtype, d)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    splits, part = 1, None
+    if route == "tensor_core":
+        if do.data_ptr() % 16:          # TMA reads 16-byte-aligned bases
+            do = do.clone()
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = flash_dkdv_splits(b, kv, sk, h // kv, sms)
+        if splits > 1:
+            part = torch.empty(2, splits, b * kv * sk * d,
+                               dtype=torch.float32, device=q.device)
     build.check(build.library().flash_attention_bwd_launch(
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        _ptr(part), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), b, h, kv, sq, sk, d, scale,
         int(causal), int(window), float(logit_cap), _DTYPES[q.dtype],
-        _stream()), "flash_attention_bwd")
+        int(route == "tensor_core"), splits, _stream()),
+        "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
+    FLASH_ROUTES["bwd_" + route] += 1
     return dq, dk, dv
 
 
@@ -335,7 +378,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,H,Sq,D); k,v: (B,KV,Sk,D); H % KV == 0. Returns (B,H,Sq,D).
 
-    The JAX wrapper's ``block_q``/``block_k``/``interpret`` have no
+    On the card, bf16 at head_dim 64, 128 or 256 runs the tensor-core
+    kernels, which need 16-byte-aligned bases and Sk > 0; fp32, and bf16
+    at any other head_dim, the CUDA-core kernels (``flash_route``).  The
+    JAX wrapper's ``block_q``/``block_k``/``interpret`` have no
     counterpart: the CUDA kernels' tiles are fixed (see their source).
     """
     what = "flash_attention"
@@ -358,6 +404,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not on_cuda:
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    logit_cap=logit_cap, scale=scale)
+    if flash_route(q.dtype, d) == "tensor_core":     # TMA
+        _check(what, sk > 0, "the tensor-core kernels need Sk > 0")
+        _check(what, all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+               "q, k and v must start on 16-byte boundaries")
     scale = d ** -0.5 if scale is None else scale
     if _wants_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window, logit_cap,

@@ -67,20 +67,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out, torch.logsumexp(scores, dim=-1).reshape(b, h, s)
 
 
-def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, o: torch.Tensor,
-                            lse: torch.Tensor, do: torch.Tensor, *,
-                            causal: bool = True, window: int = 0,
-                            logit_cap: float = 0.0,
-                            scale: Optional[float] = None):
-    """(dq, dk, dv) in the inputs' types, from the forward's output ``o``
-    and row log-sum-exp ``lse`` (B,H,Sq) fp32.
-
-    p = exp(s - lse) on visible entries and exactly 0 elsewhere;
-    dS = p (dO V^T - rowsum(dO O)) times ds/d(q.k), which is the scale
-    times 1 - (s/cap)^2 with a softcap; dQ = dS K, dK = dS^T Q and
-    dV = p^T dO, the K/V gradients summed over the heads of a group.
-    """
+def _flash_bwd_terms(q, k, v, o, lse, do, causal, window, logit_cap,
+                     scale):
+    """fp32 (q, dO by group, k, p, dS) of the backward formulas, with q and
+    dO as (B, KV, G, Sq, D) and p, dS as (B, KV, G, Sq, Sk)."""
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     g = h // kv
@@ -97,11 +87,80 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     p = torch.where(ok, torch.exp(s - lse.reshape(b, kv, g, sq, 1)), 0.0)
     dp = torch.einsum("bkgqd,bktd->bkgqt", doh, vf)
     delta = (do.float() * o.float()).sum(-1).reshape(b, kv, g, sq, 1)
-    ds = p * (dp - delta) * fac
-    dq = torch.einsum("bkgqt,bktd->bkgqd", ds, kf).reshape(b, h, sq, d)
+    return qh, doh, kf, p, p * (dp - delta) * fac
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            logit_cap: float = 0.0,
+                            scale: Optional[float] = None):
+    """(dq, dk, dv) in the inputs' types, from the forward's output ``o``
+    and row log-sum-exp ``lse`` (B,H,Sq) fp32.
+
+    p = exp(s - lse) on visible entries and exactly 0 elsewhere;
+    dS = p (dO V^T - rowsum(dO O)) times ds/d(q.k), which is the scale
+    times 1 - (s/cap)^2 with a softcap; dQ = dS K, dK = dS^T Q and
+    dV = p^T dO, the K/V gradients summed over the heads of a group.
+    """
+    qh, doh, kf, p, ds = _flash_bwd_terms(q, k, v, o, lse, do, causal,
+                                          window, logit_cap, scale)
+    dq = torch.einsum("bkgqt,bktd->bkgqd", ds, kf).reshape(q.shape)
     dk = torch.einsum("bkgqt,bkgqd->bktd", ds, qh)
     dv = torch.einsum("bkgqt,bkgqd->bktd", p, doh)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_rounded_ref(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, o: torch.Tensor,
+                                    lse: torch.Tensor, do: torch.Tensor, *,
+                                    causal: bool = True, window: int = 0,
+                                    logit_cap: float = 0.0,
+                                    scale: Optional[float] = None):
+    """What the bf16 tensor-core backward computes: the formulas of
+    ``flash_attention_bwd_ref`` with p rounded to bf16 before dV = p^T dO
+    and dS rounded to bf16 before dK = dS^T Q and dQ = dS K, the products
+    summed in fp32.  Returns (dq, dk, dv) in the inputs' types."""
+    qh, doh, kf, p, ds = _flash_bwd_terms(q, k, v, o, lse, do, causal,
+                                          window, logit_cap, scale)
+    p = p.to(torch.bfloat16).float()
+    ds = ds.to(torch.bfloat16).float()
+    dq = torch.einsum("bkgqt,bktd->bkgqd", ds, kf).reshape(q.shape)
+    dk = torch.einsum("bkgqt,bkgqd->bktd", ds, qh)
+    dv = torch.einsum("bkgqt,bkgqd->bktd", p, doh)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_dkdv_partials_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor,
+                            splits: int, *, causal: bool = True,
+                            window: int = 0, logit_cap: float = 0.0,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """The tensor-core dK/dV kernel's partials, (2, splits, B, KV, Sk, D)
+    fp32 (dK, then dV): split s sums the query heads
+    [s G // splits, (s + 1) G // splits) of each group of G."""
+    qh, doh, _, p, ds = _flash_bwd_terms(q, k, v, o, lse, do, causal,
+                                         window, logit_cap, scale)
+    g = qh.shape[2]
+    out = []
+    for s in range(splits):
+        lo, hi = s * g // splits, (s + 1) * g // splits
+        out.append(torch.stack([
+            torch.einsum("bkgqt,bkgqd->bktd", ds[:, :, lo:hi],
+                         qh[:, :, lo:hi]),
+            torch.einsum("bkgqt,bkgqd->bktd", p[:, :, lo:hi],
+                         doh[:, :, lo:hi])]))
+    return torch.stack(out, dim=1)
+
+
+def flash_dkdv_combine_ref(part: torch.Tensor):
+    """(dK, dV) fp32 from the partials, the splits added in order."""
+    acc = part[:, 0].clone()
+    for s in range(1, part.shape[1]):
+        acc = acc + part[:, s]
+    return acc[0], acc[1]
 
 
 def rms_norm_ref(x: torch.Tensor, scale: torch.Tensor,

@@ -25,6 +25,7 @@ from repro_torch.kernels.ref import (
     ce_loss_logz_ref,
     ce_loss_ref,
     flash_attention_bwd_ref,
+    flash_attention_bwd_rounded_ref,
     flash_attention_ref,
     rms_norm_bwd_ref,
     rms_norm_ref,
@@ -83,6 +84,9 @@ def test_rms_norm_kernel_matches_plain(card, dtype, shape):
     (1, 8, 8, 96, 96, 128),     # MHA
     (1, 8, 1, 70, 70, 256),     # gemma-2b head_dim, ragged
     (1, 2, 1, 130, 190, 32),    # Sq != Sk
+    (1, 4, 2, 130, 130, 128),   # GQA, ragged: two q tiles, the last short
+    (2, 8, 1, 190, 190, 256),   # MQA at gemma-2b's head_dim, ragged
+    (1, 2, 1, 130, 190, 64),    # Sq != Sk on the tensor cores
 ])
 @pytest.mark.parametrize("causal,window,cap", [
     (True, 0, 0.0), (True, 64, 0.0), (True, 0, 50.0), (False, 0, 0.0),
@@ -96,8 +100,11 @@ def test_flash_attention_kernel_matches_plain(card, dtype, shape, causal,
     v = _randn(gen, b, kv, sk, d, dtype=dtype, scale=0.3)
     kw = dict(causal=causal, window=window, logit_cap=cap)
     before = ops.LAUNCHES["flash_attention"]
+    route = "fwd_" + ops.flash_route(dtype, d)
+    routed = ops.FLASH_ROUTES[route]
     got = ops.flash_attention(q, k, v, **kw)
     assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert ops.FLASH_ROUTES[route] == routed + 1
     want = flash_attention_ref(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == q.shape
     assert float((got.float() - want.float()).abs().max()) <= TOL[dtype]
@@ -170,6 +177,10 @@ def test_rms_norm_bwd_kernel_matches_plain(card, dtype, shape):
     (2, 4, 2, 160, 160, 32),    # GQA, ragged seq
     (1, 8, 1, 70, 70, 256),     # gemma-2b head_dim, ragged
     (1, 2, 1, 130, 190, 32),    # Sq != Sk
+    (1, 4, 2, 130, 130, 128),   # GQA, ragged
+    (2, 8, 1, 190, 190, 256),   # MQA at gemma-2b's head_dim: head splits
+    (1, 8, 8, 96, 96, 128),     # MHA: one split
+    (1, 2, 1, 130, 190, 64),    # Sq != Sk on the tensor cores
 ])
 @pytest.mark.parametrize("causal,window,cap", [
     (True, 0, 0.0), (True, 64, 0.0), (True, 0, 50.0), (False, 0, 0.0),
@@ -199,11 +210,66 @@ def test_flash_attention_bwd_kernel_matches_plain(card, dtype, shape, causal,
                                    out.detach(), lse, do, **kw)
     for got, w in zip((q.grad, k.grad, v.grad), want):
         assert _rel(got, w) <= GRAD_TOL[dtype]
+    if ops.flash_route(dtype, d) == "tensor_core":   # P, dS rounded to bf16
+        want = flash_attention_bwd_rounded_ref(
+            q.detach(), k.detach(), v.detach(), out.detach(), lse, do, **kw)
+        for got, w in zip((q.grad, k.grad, v.grad), want):
+            assert _rel(got, w) <= GRAD_TOL[dtype]
     if dtype == torch.float32:          # and autograd of the plain forward
         q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
         flash_attention_ref(q2, k2, v2, **kw).backward(do)
         for got, t in zip((q.grad, k.grad, v.grad), (q2, k2, v2)):
             assert _rel(got, t.grad) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 8, 1, 256, 256, 256),   # MQA: head splits and their combine
+    (1, 4, 4, 130, 130, 64),    # MHA: one split, bf16 written directly
+])
+def test_flash_attention_bf16_backward_is_deterministic(card, shape):
+    """No atomics: two tensor-core backward runs are bitwise equal."""
+    b, h, kv, sq, sk, d = shape
+    gen = torch.Generator().manual_seed(9)
+    q = _randn(gen, b, h, sq, d, dtype=torch.bfloat16, scale=0.3)
+    k = _randn(gen, b, kv, sk, d, dtype=torch.bfloat16, scale=0.3)
+    v = _randn(gen, b, kv, sk, d, dtype=torch.bfloat16, scale=0.3)
+    do = _randn(gen, b, h, sq, d, dtype=torch.bfloat16)
+    args = (True, 0, 0.0, d ** -0.5)
+    o, lse = ops._flash_fwd(q, k, v, *args, True)
+    first, second = (ops._flash_bwd(q, k, v, o, lse, do, *args)
+                     for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_gemma_shaped_bf16_attention_runs_the_tensor_core_kernels(card):
+    """gemma-2b's attention (MQA, head_dim 256) in bf16 goes through the
+    tensor-core kernels, forward and backward; the same call in fp32, and
+    bf16 at head_dim 32, through the CUDA-core kernels."""
+    gen = torch.Generator().manual_seed(10)
+    for dtype, d, route in ((torch.bfloat16, 256, "tensor_core"),
+                            (torch.float32, 256, "cuda_core"),
+                            (torch.bfloat16, 32, "cuda_core")):
+        q = _randn(gen, 2, 8, 256, d, dtype=dtype, scale=0.3)
+        k, v = (_randn(gen, 2, 1, 256, d, dtype=dtype,
+                       scale=0.3).requires_grad_() for _ in range(2))
+        ops.reset_launches()
+        ops.flash_attention(q.requires_grad_(), k, v).sum().backward()
+        assert ops.FLASH_ROUTES == dict.fromkeys(ops.FLASH_ROUTES, 0) | {
+            f"fwd_{route}": 1, f"bwd_{route}": 1}
+
+
+def test_flash_attention_refuses_a_base_tma_cannot_read(card):
+    """The tensor-core route needs 16-byte-aligned bases: refused, never
+    rerouted to the CUDA-core kernels."""
+    buf = torch.zeros(1 * 2 * 64 * 64 + 1, dtype=torch.bfloat16, device=card)
+    q = buf[1:].view(1, 2, 64, 64)
+    k = torch.zeros(1, 1, 64, 64, dtype=torch.bfloat16, device=card)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q, k, k)
+    # fp32 (the CUDA-core kernels) takes the same offset
+    q32 = torch.zeros(1 * 2 * 64 * 64 + 1, device=card)[1:].view(1, 2, 64, 64)
+    assert ops.flash_attention(q32, k.float(), k.float()).shape == q32.shape
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

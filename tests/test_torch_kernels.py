@@ -373,6 +373,97 @@ def test_ce_loss_refuses_a_bf16_width_tma_cannot_stride():
                        torch.zeros(4, dtype=torch.long)).shape == (4,)
 
 
+FLASH_ROUNDED_CASES = [
+    # (B, H, KV, Sq, Sk, D), causal, window, cap
+    ((2, 4, 1, 128, 128, 64), True, 0, 0.0),       # MQA
+    ((1, 4, 2, 96, 96, 64), True, 0, 0.0),         # GQA
+    ((1, 4, 2, 160, 160, 64), True, 48, 0.0),      # window, ragged S
+    ((1, 2, 1, 96, 96, 128), True, 0, 30.0),       # softcap
+    ((1, 2, 1, 70, 130, 64), False, 0, 0.0),       # ragged, Sq != Sk
+]
+
+
+def _bf16_values(*arrays):
+    """fp32 arrays holding bf16 values, as the bf16 kernels read them."""
+    return [torch.from_numpy(a).bfloat16().float().numpy() for a in arrays]
+
+
+@pytest.mark.parametrize("shape,causal,window,cap", FLASH_ROUNDED_CASES)
+def test_flash_attention_bwd_rounded_matches_jax_grad(shape, causal, window,
+                                                      cap):
+    """P and dS rounded to bf16 before their products (the tensor-core
+    backward) move the gradients by far less than 2e-2 of the largest;
+    jax.vjp of the JAX oracle on the same bf16 values is the reference."""
+    b, h, kv, sq, sk, d = shape
+    rng = np.random.RandomState(15)
+    q, k, v, do = _bf16_values(*(
+        (rng.randn(*s) * sc).astype(np.float32) for s, sc in
+        (((b, h, sq, d), 0.3), ((b, kv, sk, d), 0.3), ((b, kv, sk, d), 0.3),
+         ((b, h, sq, d), 1.0))))
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse = ref.flash_attention_ref(tq, tk, tv, return_lse=True, **kw)
+    got = ref.flash_attention_bwd_rounded_ref(tq, tk, tv, out, lse, tdo,
+                                              **kw)
+    plain = ref.flash_attention_bwd_ref(tq, tk, tv, out, lse, tdo, **kw)
+    _, vjp = jax.vjp(lambda a, b_, c: jax_fa_ref(a, b_, c, **kw),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for g, pg, jg in zip(got, plain, vjp(jnp.asarray(do))):
+        assert g.dtype == torch.float32
+        _grad_close(g, jg, 2e-2)
+        _grad_close(g, pg.numpy(), 2e-2)
+    # bf16 inputs give bf16 gradients
+    bq, bk, bv, bo, bdo = (t.bfloat16() for t in (tq, tk, tv, out, tdo))
+    assert all(g.dtype == torch.bfloat16 for g in
+               ref.flash_attention_bwd_rounded_ref(bq, bk, bv, bo, lse, bdo,
+                                                   **kw))
+
+
+@pytest.mark.parametrize("shape,splits", [
+    ((2, 8, 1, 96, 96, 32), 8),      # MQA, one head a split
+    ((2, 8, 1, 96, 96, 32), 3),      # uneven splits: heads 2, 3, 3
+    ((1, 8, 2, 70, 70, 16), 4),      # GQA, ragged S
+    ((1, 4, 4, 64, 64, 16), 1),      # MHA: one split, no partials
+])
+def test_flash_dkdv_split_partials_sum_to_the_unsplit_formula(shape, splits):
+    """The dK/dV kernel's head splits: partials summed in split order are
+    the unsplit dK and dV (fp32, 1e-6 of the largest)."""
+    b, h, kv, s, _, d = shape
+    rng = np.random.RandomState(16)
+    tq, tk, tv, tdo = (torch.from_numpy((rng.randn(*x) * 0.3).astype(
+        np.float32)) for x in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d),
+                               (b, h, s, d)))
+    kw = dict(causal=True, window=0, logit_cap=20.0)
+    out, lse = ref.flash_attention_ref(tq, tk, tv, return_lse=True, **kw)
+    part = ref.flash_dkdv_partials_ref(tq, tk, tv, out, lse, tdo, splits,
+                                       **kw)
+    assert part.shape == (2, splits, b, kv, s, d)
+    dk, dv = ref.flash_dkdv_combine_ref(part)
+    _, want_dk, want_dv = ref.flash_attention_bwd_ref(tq, tk, tv, out, lse,
+                                                      tdo, **kw)
+    _grad_close(dk, want_dk.numpy(), 1e-6)
+    _grad_close(dv, want_dv.numpy(), 1e-6)
+
+
+def test_flash_route_is_chosen_by_dtype_and_head_dim():
+    for d in ops.FLASH_TC_HEAD_DIMS:
+        assert ops.flash_route(torch.bfloat16, d) == "tensor_core"
+        assert ops.flash_route(torch.float32, d) == "cuda_core"
+    for d in (16, 32, 70, 96, 192):
+        assert ops.flash_route(torch.bfloat16, d) == "cuda_core"
+
+
+@pytest.mark.parametrize("b,kv,sk,group,sms,want", [
+    (8, 1, 256, 8, 132, 8),      # gemma-2b training: 32 x 8 blocks
+    (8, 1, 1024, 8, 132, 2),     # S 1024: 128 x 2
+    (1, 2, 160, 2, 132, 2),      # small: one split a head
+    (1, 8, 96, 1, 132, 1),       # MHA: nothing to split
+    (64, 1, 4096, 8, 132, 1),    # many key tiles: no split
+])
+def test_flash_dkdv_splits_fill_the_card(b, kv, sk, group, sms, want):
+    assert ops.flash_dkdv_splits(b, kv, sk, group, sms) == want
+
+
 # ---------------------------------------------------------------------------
 # The autograd Functions, with the launches swapped for the plain formulas
 # ---------------------------------------------------------------------------

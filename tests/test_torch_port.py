@@ -164,3 +164,19 @@ def test_control_plane_copies_differ_from_the_jax_package_only_in_imports():
                 i for i, ln in enumerate(lines) if ln.startswith("_SCHED"))]
             want, got = cut(want), cut(got)
         assert got == want, name
+
+
+@pytest.mark.parametrize("cmd", [
+    ["chip_smoke.py"],
+    ["-m", "repro_torch.launch.flash_probe"],
+])
+def test_card_only_scripts_exit_2_without_a_card(cmd):
+    """The chip scripts find no card here: they exit 2 and print no
+    result line."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env |= {"PYTHONPATH": os.path.join(ROOT, "src"),
+            "CUDA_VISIBLE_DEVICES": ""}
+    res = subprocess.run([sys.executable, *cmd], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert res.returncode == 2, res.stderr
+    assert res.stdout == ""
