@@ -10,7 +10,10 @@ exit code:
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
 2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc``, with
-   ptxas' register and shared-memory report;
+   ptxas' register and shared-memory report; fails on a spill in a
+   tensor-core kernel (``ce_tc_*``, ``flash_tc_*``) and when a kernel
+   that moves registers with setmaxnreg (``ce_tc_*``, ``flash_tc_fwd``,
+   ``flash_tc_dkdv``) does not enter with 168 of them;
 3. rms_norm: kernel vs its plain PyTorch version at gemma-2b's training
    (2048 rows), prefill (8*1024) and decode (8) shapes, d = 2048, fp32
    and bf16, and at mamba2-2.7b's (d 2560 and 5120, bf16); the backward
@@ -18,13 +21,15 @@ exit code:
 4. flash_attention: kernel vs its plain version at gemma-2b's training
    (B 8, H 8, KV 1, S 256, D 256) and prefill (S 1024) shapes and on
    small GQA cases with a window, a softcap, a ragged S and Sq != Sk;
-   the backward kernels at the training shape and on the small cases,
-   the bf16 tensor-core backward also against its bf16-P/dS formulas
-   and bitwise against a second run; the device time of each bf16
-   tensor-core kernel (``flash_tc_fwd``; ``flash_bwd_delta``,
-   ``flash_tc_dkdv``, ``flash_tc_combine``, ``flash_tc_dq``) from the
-   profiler.  The build phase fails on a spill in a tensor-core kernel
-   (``ce_tc_*``, ``flash_tc_*``);
+   the bf16 output also against the plain version in fp32 arithmetic,
+   and the forward's LSE against that version's; the backward kernels
+   on the forward kernel's output and LSE at the training shape and on
+   the small cases, against the plain formulas on the plain forward's
+   output and LSE, the bf16 tensor-core backward also against its
+   bf16-P/dS formulas and bitwise against a second run; the device time
+   of each bf16 tensor-core kernel (``flash_tc_fwd``;
+   ``flash_bwd_delta``, ``flash_tc_dkdv``, ``flash_tc_combine``,
+   ``flash_tc_dq``) from the profiler;
 5. ce_loss: the fused cross-entropy forward and backward at gemma-2b's
    training shape (T 2040, V 256000, d 2048, bf16), at mamba2-2.7b's
    (T 2040, V 50280, d 2560, bf16) and in fp32 at T 77, V 1000, d 64;
@@ -46,17 +51,17 @@ then, for gemma-2b and then mamba2-2.7b:
    tokens and 8 teacher-forced decode steps;
 8. serving: full width and depth in bf16 through ``ServeEngine.generate``
    (8 requests, 1024 prompt tokens, 32 new), with the kernel launch
-   counts of that run (gemma-2b: every flash launch on the tensor-core
-   route), and a profile;
+   counts of that run, and a profile of a prefill (gemma-2b: every flash
+   launch in it a ``flash_tc_fwd``, by the profiler's kernel names);
 9. train parity: full width and depth 2, fp32, batch 2 x 64: loss, every
    gradient and the params after one AdamW step, the card against a CPU
    copy;
 10. training (the main paths): full width and depth, bf16 params with
     fp32 AdamW state, through ``ElasticTrainer`` at the JAX trainer's
     defaults (per-node batch 8, seq 256): rescale(1), 6 steps, park,
-    unpark, 2 steps, with the launches of every step (gemma-2b: every
-    flash launch, forward and backward, on the tensor-core route), then
-    one profiled step;
+    unpark, 2 steps, with the launches of every step, then one profiled
+    step (gemma-2b: every flash launch in it, forward and backward, a
+    tensor-core kernel, by the profiler's kernel names);
 11. elastic (gemma-2b): that trainer under ``BFTrainerRuntime`` with the
     fast MILP allocator over a replayed idle-node trace;
 12. a ``kernels`` line: each kernel's launches in one training step of
@@ -66,7 +71,9 @@ then, for gemma-2b and then mamba2-2.7b:
 
 Tolerances: kernels 2e-5 (fp32) / 2e-2 (bf16), those of the JAX
 package's kernel tests; a bf16 output is held to 2e-2 of
-max(|plain|, 1) elementwise, one bf16 ulp with margin.  The SSD scan
+max(|plain|, 1) elementwise, one bf16 ulp with margin.  The bf16 flash
+forward also to 5e-3 of max(|plain|, 1) against the plain version in
+fp32 arithmetic, and its LSE to 1e-5 (fp32) / 1e-4 (bf16).  The SSD scan
 1e-4 (fp32) / 0.08 (bf16), those of its JAX test.  Gradients: 1e-4
 (fp32) / 2e-2 (bf16) of the largest |gradient|.  Model and train parity
 1e-3 of the largest value of each output or leaf: fp32 with TF32 off
@@ -85,6 +92,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +104,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 MODEL_TOL = 1e-3
+# bf16 flash forward against the plain version in fp32 arithmetic on the
+# same inputs, relative to max(|want|, 1): the kernel's own error, half a
+# bf16 ulp of the output (<= 1.95e-3 below 1) plus P's rounding to bf16;
+# 2.7e-3 at most was measured on an H100.  The bf16 plain version rounds
+# its scores, P and output, so against it one ulp (3.9e-3 at [0.5, 1))
+# is the rule and only TOL holds.
+FLASH_FWD_TOL_FP32_MATH = 5e-3
+# the forward's fp32 LSE against the plain version's in fp32 arithmetic
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 ELEMENTWISE_FLOPS = 67e12   # fp32 outside the tensor cores
@@ -132,14 +149,19 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| / max(|want|, 1), elementwise."""
+    diff = (got.float() - want.float()).abs()
+    return float((diff / want.float().abs().clamp(min=1.0)).max())
+
+
 def out_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """The error a forward output is held to: absolute in fp32; in bf16
     relative to max(|want|, 1) elementwise (one bf16 ulp is 2**-8 of the
     value, so an absolute bound fails on outputs of 4 or more)."""
-    diff = (got.float() - want.float()).abs()
     if want.dtype == torch.bfloat16:
-        diff = diff / want.float().abs().clamp(min=1.0)
-    return float(diff.max())
+        return scaled_err(got, want)
+    return max_err(got, want)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -164,29 +186,60 @@ def phase_device() -> str:
     return line
 
 
+# The tensor-core kernels (ce_tc_*, flash_tc_*) hold 64 x 256 fp32
+# accumulators in registers: a spill there is a design fault, not a
+# tuning matter.  Those of 384 threads move registers between their
+# warpgroups with setmaxnreg (the consumers up, the producer down), which
+# balances only if the kernel enters with 65,536 / 384 rounded down to 8,
+# that is 168: with fewer, the consumers' setmaxnreg.inc waits forever.
+TC_FAMILIES = ("ce_tc_", "flash_tc_")
+SETMAXNREG_KERNELS = ("ce_tc_", "flash_tc_fwd", "flash_tc_dkdv")
+SETMAXNREG_ENTRY = 168
+
+
+def ptxas_report(log: str) -> dict[str, str]:
+    """ptxas' register, spill and shared-memory lines, by kernel."""
+    ptxas, fn = {}, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif "spill stores" in ln or "Used" in ln:
+            ptxas[fn] = (ptxas.get(fn, "") + " " + ln.strip()).strip()
+    return ptxas
+
+
+def tc_faults(ptxas: dict[str, str]) -> dict:
+    """The tensor-core kernels' count by family, their spills, and the
+    setmaxnreg kernels whose register count at entry is not 168."""
+    spills = {f: r for f, r in ptxas.items()
+              if any(t in f for t in TC_FAMILIES)
+              and not ("0 bytes spill stores" in r and "0 bytes spill loads" in r)}
+    entry = {}
+    for f, r in ptxas.items():
+        if any(t in f for t in SETMAXNREG_KERNELS):
+            m = re.search(r"Used (\d+) registers", r)
+            entry[f] = int(m.group(1)) if m else None
+    return {"tc_kernels": {t: sum(t in f for f in ptxas) for t in TC_FAMILIES},
+            "tc_spills": spills,
+            "setmaxnreg_kernels": len(entry),
+            "setmaxnreg_bad_entry": {f: n for f, n in entry.items()
+                                     if n != SETMAXNREG_ENTRY}}
+
+
 def phase_build(build) -> None:
     t0 = time.perf_counter()
     build.build(force=True)
     build.library()
     seconds = time.perf_counter() - t0
-    ptxas, fn = {}, ""
-    for ln in build.BUILD_LOG.splitlines():       # registers per kernel
-        if "Compiling entry function" in ln:
-            fn = ln.split("'")[1]
-        elif "spill stores" in ln or "Used" in ln:
-            ptxas[fn] = (ptxas.get(fn, "") + " " + ln.strip()).strip()
-    # the tensor-core kernels (ce_tc_*, flash_tc_*) hold 64 x 256 fp32
-    # accumulators in registers: a spill there is a design fault, not a
-    # tuning matter
-    tc = ("ce_tc_", "flash_tc_")
-    spills = {f: r for f, r in ptxas.items() if any(t in f for t in tc)
-              and not ("0 bytes spill stores" in r and "0 bytes spill loads" in r)}
-    counts = {t: sum(t in f for f in ptxas) for t in tc}
+    ptxas = ptxas_report(build.BUILD_LOG)
+    faults = tc_faults(ptxas)
     emit({"phase": "build", "seconds": seconds,
-          "source_seconds": build.BUILD_SECONDS, "ptxas": ptxas,
-          "tc_kernels": counts, "tc_spills": spills})
-    if spills or not all(counts.values()):
-        fail(f"tensor-core kernels spill or are missing: {spills} {counts}")
+          "source_seconds": build.BUILD_SECONDS, "ptxas": ptxas, **faults})
+    if faults["tc_spills"] or not all(faults["tc_kernels"].values()):
+        fail(f"tensor-core kernels spill or are missing: {faults}")
+    if faults["setmaxnreg_bad_entry"] or not faults["setmaxnreg_kernels"]:
+        fail("setmaxnreg kernels must enter with "
+             f"{SETMAXNREG_ENTRY} registers: {faults}")
 
 
 RMS_CASES = [
@@ -308,18 +361,32 @@ def phase_flash(ops, ref) -> dict:
             q, k, v = rnd(b, h, sq, d), rnd(b, kv, sk, d), rnd(b, kv, sk, d)
             kw = dict(causal=causal, window=window, logit_cap=cap)
             want = ref.flash_attention_ref(q, k, v, **kw)
+            # the plain version in fp32 arithmetic on the same inputs: an
+            # unrounded output, and the LSE the backward is built from
+            plain_o, plain_lse = ref.flash_attention_ref(
+                q.float(), k.float(), v.float(), return_lse=True, **kw)
             got = ops.flash_attention(q, k, v, **kw)
+            _, lse = ops._flash_fwd(q, k, v, causal, window, cap, d ** -0.5,
+                                    True)
             err = out_err(got, want)
             case = {
                 "phase": "flash_attention", "shape": [b, h, kv, sq, sk, d],
                 "dtype": dt_name(dtype), **kw,
                 "max_abs_err": max_err(got, want), "err": err,
                 "tol": TOL[dtype],
-                "ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
-                "plain_ms": time_ms(
-                    lambda: ref.flash_attention_ref(q, k, v, **kw)),
-                "library_ms": None,
+                "lse_err": max_err(lse, plain_lse), "lse_tol": LSE_TOL[dtype],
             }
+            ok = err <= TOL[dtype] and case["lse_err"] <= LSE_TOL[dtype]
+            if dtype == torch.bfloat16:
+                case["err_fp32_math"] = scaled_err(got, plain_o)
+                case["tol_fp32_math"] = FLASH_FWD_TOL_FP32_MATH
+                ok = ok and case["err_fp32_math"] <= FLASH_FWD_TOL_FP32_MATH
+            del want
+            plain_o = plain_o.to(dtype)
+            case["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+            case["plain_ms"] = time_ms(
+                lambda: ref.flash_attention_ref(q, k, v, **kw))
+            case["library_ms"] = None
             sdpa = causal and not window and not cap and sq == sk
             if sdpa:
                 ke = k.repeat_interleave(h // kv, dim=1)
@@ -341,26 +408,31 @@ def phase_flash(ops, ref) -> dict:
                 _device_times(case, lambda: ops.flash_attention(q, k, v, **kw),
                               ("flash_tc_fwd",), flops)
             emit(case)
-            if not err <= TOL[dtype]:
-                fail(f"flash_attention {case['shape']} {kw} {dtype}: err {err}")
+            if not ok:
+                fail(f"flash_attention {case['shape']} {kw} {dtype}: err "
+                     f"{err}, lse err {case['lse_err']}, err against fp32 "
+                     f"arithmetic {case.get('err_fp32_math')}")
             if sq == 1024:
                 continue
-            bwd = _flash_bwd_case(ops, ref, q, k, v, got, kw, pairs, gen,
-                                  sdpa)
+            bwd = _flash_bwd_case(ops, ref, q, k, v, got, lse,
+                                  (plain_o, plain_lse), kw, pairs, gen, sdpa)
             if sq == 256 and d == 256 and dtype == torch.bfloat16:
                 main["flash_attention"], main["flash_attention_bwd"] = case, bwd
     return main
 
 
-def _flash_bwd_case(ops, ref, q, k, v, o, kw, pairs, gen, sdpa) -> dict:
+def _flash_bwd_case(ops, ref, q, k, v, o, lse, plain, kw, pairs, gen,
+                    sdpa) -> dict:
+    """The backward kernels on the forward kernel's (o, lse), held against
+    the plain formulas on the plain forward's ``plain`` (o, lse): a wrong
+    LSE from the forward kernel moves only the kernels' side."""
     b, h, sq, d = q.shape
     kv, dtype = k.shape[1], q.dtype
     scale = d ** -0.5
     args = (kw["causal"], kw["window"], kw["logit_cap"], scale)
     do = (torch.randn(q.shape, generator=gen, device="cuda") * 0.3).to(dtype)
-    _, lse = ops._flash_fwd(q, k, v, *args, True)
     got = ops._flash_bwd(q, k, v, o, lse, do, *args)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, *plain, do, **kw)
     err = max(rel_err(g, w) for g, w in zip(got, want))
     route = ops.flash_route(dtype, d)
     case = {"phase": "flash_attention_bwd",
@@ -369,7 +441,7 @@ def _flash_bwd_case(ops, ref, q, k, v, o, kw, pairs, gen, sdpa) -> dict:
             "max_abs_err": max(max_err(g, w) for g, w in zip(got, want)),
             "rel_err": err, "tol": GRAD_TOL[dtype], "library_ms": None}
     if route == "tensor_core":        # P and dS rounded to bf16, no atomics
-        want = ref.flash_attention_bwd_rounded_ref(q, k, v, o, lse, do, **kw)
+        want = ref.flash_attention_bwd_rounded_ref(q, k, v, *plain, do, **kw)
         case["rel_err_rounded"] = max(rel_err(g, w)
                                       for g, w in zip(got, want))
         err = max(err, case["rel_err_rounded"])
@@ -770,13 +842,27 @@ def expected_serving_launches(cfg, n_new: int) -> dict:
     return want
 
 
-def expected_routes(launches: dict) -> dict:
-    """bf16 at the models' head_dim (256): every flash launch, forward and
-    backward, on the tensor-core route."""
-    return {"fwd_tensor_core": launches.get("flash_attention", 0),
-            "fwd_cuda_core": 0,
-            "bwd_tensor_core": launches.get("flash_attention_bwd", 0),
-            "bwd_cuda_core": 0}
+# the flash kernels of each route, by the names a profile gives them
+FLASH_KERNELS = {
+    "tensor_core": ("flash_tc_fwd", "flash_tc_dkdv", "flash_tc_combine",
+                    "flash_tc_dq"),
+    "cuda_core": ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"),
+}
+
+
+def check_flash_routes(ops, cfg, got: dict, fwd: int, bwd: int,
+                       what: str) -> None:
+    """bf16 attention at the models' head_dim runs the tensor-core flash
+    kernels: ``fwd`` forward and ``bwd`` backward launches of them in a
+    profiled window whose flash kernel launches are ``got``, and none of
+    the CUDA-core ones."""
+    route = ops.flash_route(torch.bfloat16, cfg.head_dim)
+    tc = {"flash_tc_fwd": fwd, "flash_tc_dkdv": bwd, "flash_tc_dq": bwd}
+    if (route != "tensor_core" or any(got[n] != c for n, c in tc.items())
+            or any(got[n] for n in FLASH_KERNELS["cuda_core"])):
+        fail(f"{what}: flash kernels {got} (route {route}), want {tc} and "
+             f"no CUDA-core flash kernel: bf16 attention at head_dim "
+             f"{cfg.head_dim} must run the tensor-core kernels")
 
 
 def phase_serving(Model, ServeEngine, get_arch, ops,
@@ -793,9 +879,8 @@ def phase_serving(Model, ServeEngine, get_arch, ops,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     res = eng.generate({"tokens": toks}, n_new)
-    launches, routes = dict(ops.LAUNCHES), dict(ops.FLASH_ROUTES)
+    launches = dict(ops.LAUNCHES)
     want = dict.fromkeys(launches, 0) | expected_serving_launches(cfg, n_new)
-    want_routes = expected_routes(want)
     in_range = bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all())
     emit({"phase": "serving", "arch": cfg.name, "n_layers": cfg.n_layers,
           "dtype": "bfloat16", "batch": batch, "prompt_len": prompt,
@@ -805,17 +890,16 @@ def phase_serving(Model, ServeEngine, get_arch, ops,
           "decode_tok_per_s": res.tokens_per_s,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": launches, "expected_launches": want,
-          "flash_routes": routes,
           "tokens_shape": list(res.tokens.shape), "ids_in_range": in_range,
           "sample_ids": res.tokens[0, :8].tolist()})
     if launches != want:
         fail(f"launches {launches} != {want}")
-    if routes != want_routes:
-        fail(f"flash routes {routes} != {want_routes}: bf16 attention at "
-             "head_dim 256 must run the tensor-core kernels")
     if res.tokens.shape != (batch, n_new) or not in_range:
         fail(f"generated ids out of shape or range: {res.tokens.shape}")
-    phase_profile(model, torch.from_numpy(toks).cuda(), eng.max_len)
+    prefill = phase_profile(model, torch.from_numpy(toks).cuda(), eng.max_len)
+    if want["flash_attention"]:
+        check_flash_routes(ops, cfg, prefill["flash_kernels"],
+                           want["flash_attention"], 0, "prefill")
     return launches
 
 
@@ -832,19 +916,23 @@ def _profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [(e.key, e.self_device_time_total / 1e3)
+    kern = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")
             and e.self_device_time_total > 0]
-    busy = sum(t for _, t in kern)
+    busy = sum(t for _, t, _ in kern)
     top = sorted(kern, key=lambda kt: -kt[1])[:8]
+    flash = {n: sum(c for k, _, c in kern if n + "<" in k or n + "(" in k)
+             for names in FLASH_KERNELS.values() for n in names}
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms if busy else "not measured",
-            "top_kernels_ms": [[k[:70], t] for k, t in top]}
+            "top_kernels_ms": [[k[:70], t] for k, t, _ in top],
+            "flash_kernels": flash}
 
 
 @torch.inference_mode()
-def phase_profile(model, toks: torch.Tensor, cache_len: int) -> None:
+def phase_profile(model, toks: torch.Tensor, cache_len: int) -> dict:
+    """Profiles of a prefill and of 8 decode steps; returns the prefill's."""
     prefill = _profile(lambda: model.prefill({"tokens": toks}, cache_len))
     logits, cache = model.prefill({"tokens": toks}, cache_len)
     cache = _to32(cache)
@@ -859,6 +947,7 @@ def phase_profile(model, toks: torch.Tensor, cache_len: int) -> None:
 
     emit({"phase": "profile", "prefill": prefill,
           "decode_8_steps": _profile(decode)})
+    return prefill
 
 
 def _leaf_errs(got: dict, want: dict) -> float:
@@ -941,18 +1030,15 @@ def phase_training(Model, ElasticTrainer, get_arch, ops,
                   remat=False)
     tr = ElasticTrainer(model, per_node_batch=8, seed=6)
     want = dict.fromkeys(ops.LAUNCHES, 0) | expected_train_launches(cfg)
-    want_routes = expected_routes(want)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     up_s = tr.rescale(1)
     steps, per_step, totals = [], [], dict.fromkeys(ops.LAUNCHES, 0)
-    routes = []
 
     def step():
         ops.reset_launches()
         m = tr.train_step()
         launches = dict(ops.LAUNCHES)
-        routes.append(dict(ops.FLASH_ROUTES))
         for k, c in launches.items():
             totals[k] += c
         steps.append(m)
@@ -986,19 +1072,20 @@ def phase_training(Model, ElasticTrainer, get_arch, ops,
            "unpark_s": unpark_s, "params_on_host_when_parked": on_host,
            "params_bitwise_equal_across_park": same,
            "launches_per_step": per_step[-1], "expected_per_step": want,
-           "flash_routes_per_step": routes[-1], "launches_total": totals}
+           "launches_total": totals}
     emit(out)
     if not all(p == want for p in per_step):
         fail(f"training launches per step {per_step} != {want}")
-    if not all(r == want_routes for r in routes):
-        fail(f"flash routes per step {routes} != {want_routes}: bf16 "
-             "attention at head_dim 256 must run the tensor-core kernels")
     if not all(torch.isfinite(torch.tensor(losses))):
         fail(f"non-finite training loss {losses}")
     if not (same and on_host):
         fail("params changed across park/unpark or were not parked on host")
     prof = _profile(lambda: tr.train_step())
     emit({"phase": "profile", "training_step": prof})
+    if want["flash_attention"]:
+        check_flash_routes(ops, cfg, prof["flash_kernels"],
+                           want["flash_attention"],
+                           want["flash_attention_bwd"], "training step")
     return tr, per_step[-1], totals
 
 

@@ -29,13 +29,6 @@ LAUNCHES: dict[str, int] = {
     "ssd_scan": 0, "ssd_scan_bwd": 0,
 }
 
-# Flash launches by route (``flash_route``), so a run can show which
-# kernels its attention went through; reset with ``LAUNCHES``.
-FLASH_ROUTES: dict[str, int] = {
-    "fwd_tensor_core": 0, "fwd_cuda_core": 0,
-    "bwd_tensor_core": 0, "bwd_cuda_core": 0,
-}
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 FLASH_TC_HEAD_DIMS = (64, 128, 256)   # flash_attention.cu, namespace fa
@@ -49,9 +42,8 @@ SSD_MAX_P, SSD_MAX_N, SSD_MAX_CHUNK = 64, 128, 256   # ssd_scan.cu tiles
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_ROUTES):
-        for name in counts:
-            counts[name] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _on_cuda(x: torch.Tensor, what: str) -> bool:
@@ -143,7 +135,6 @@ def _flash_fwd(q, k, v, causal, window, logit_cap, scale, want_lse):
         float(logit_cap), _DTYPES[q.dtype], int(route == "tensor_core"),
         _stream()), "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    FLASH_ROUTES["fwd_" + route] += 1
     return out, lse
 
 
@@ -170,7 +161,6 @@ def _flash_bwd(q, k, v, o, lse, do, causal, window, logit_cap, scale):
         int(route == "tensor_core"), splits, _stream()),
         "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
-    FLASH_ROUTES["bwd_" + route] += 1
     return dq, dk, dv
 
 

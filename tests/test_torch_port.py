@@ -1,6 +1,7 @@
 """Properties of the PyTorch port that need no card: it imports nothing of
 JAX or the JAX package, its entry points default to the card, the CPU
 path launches no kernel, and the kernel build fails loudly without nvcc."""
+import importlib.util
 import os
 import pkgutil
 import subprocess
@@ -168,10 +169,9 @@ def test_control_plane_copies_differ_from_the_jax_package_only_in_imports():
 
 @pytest.mark.parametrize("cmd", [
     ["chip_smoke.py"],
-    ["-m", "repro_torch.launch.flash_probe"],
 ])
 def test_card_only_scripts_exit_2_without_a_card(cmd):
-    """The chip scripts find no card here: they exit 2 and print no
+    """The chip script finds no card here: it exits 2 and prints no
     result line."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env |= {"PYTHONPATH": os.path.join(ROOT, "src"),
@@ -180,3 +180,44 @@ def test_card_only_scripts_exit_2_without_a_card(cmd):
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert res.returncode == 2, res.stderr
     assert res.stdout == ""
+
+
+def _ptxas_entry(name: str, regs: int, spills: int = 0) -> str:
+    return (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {name}\n"
+            f"    0 bytes stack frame, {spills} bytes spill stores, "
+            f"{spills} bytes spill loads\n"
+            f"ptxas info    : Used {regs} registers, used 1 barriers\n")
+
+
+@pytest.mark.parametrize("fault,want", [
+    (None, {}),
+    ("spill", {"tc_spills": ["_ZN2fa13flash_tc_dkdvILi256EEEv"]}),
+    ("entry", {"setmaxnreg_bad_entry": {"_ZN2fa12flash_tc_fwdILi256EEEv": 128}}),
+])
+def test_chip_smoke_build_check_finds_spills_and_wrong_entry_registers(
+        fault, want):
+    """chip_smoke's build phase reads ptxas' log: a tensor-core kernel
+    that spills, or a setmaxnreg kernel (ce_tc_*, flash_tc_fwd,
+    flash_tc_dkdv) that does not enter with 168 registers, is a fault;
+    flash_tc_dq (no setmaxnreg) may use any count."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    log = (_ptxas_entry("_ZN2fa12flash_tc_fwdILi256EEEv",
+                        128 if fault == "entry" else 168)
+           + _ptxas_entry("_ZN2fa13flash_tc_dkdvILi256EEEv", 168,
+                          8 if fault == "spill" else 0)
+           + _ptxas_entry("_ZN2fa11flash_tc_dqILi256EEEv", 228)
+           + _ptxas_entry("_Z9ce_tc_fwdv", 168)
+           + _ptxas_entry("_Z9flash_fwdIfLi32EEvv", 64, 12))
+    ptxas = smoke.ptxas_report(log)
+    assert len(ptxas) == 5 and "Used 228 registers" in ptxas[
+        "_ZN2fa11flash_tc_dqILi256EEEv"]
+    faults = smoke.tc_faults(ptxas)
+    assert faults["tc_kernels"] == {"ce_tc_": 1, "flash_tc_": 3}
+    assert faults["setmaxnreg_kernels"] == 3
+    assert list(faults["tc_spills"]) == want.get("tc_spills", [])
+    assert faults["setmaxnreg_bad_entry"] == want.get(
+        "setmaxnreg_bad_entry", {})
